@@ -1,0 +1,19 @@
+"""respmon_tpu_torch — the PyTorch/CUDA port of ``respmon_tpu``.
+
+Same layout and public functions as the JAX package (``ops/...``,
+``pipeline/...``), tested against it on the CPU and run on an NVIDIA
+Hopper GPU, where the Pallas pyramid kernels are hand-written CUDA
+(``csrc/pyramid.cu``).  Covered so far: the whole-clip average-mode path
+``pipeline.scan.process_clip`` / ``process_clip_auto``.
+
+Precision policy (the port's counterpart of the JAX package's
+``Precision.HIGHEST`` rule): float32 matrix products and convolutions run
+in full float32, never TF32.  The temporal bandpass operator amplifies by
+500, and a TF32 product moves heatmap pixels across u8 boundaries, which
+moves bbox edges.  This is the one place the policy is set.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
