@@ -1,27 +1,75 @@
 """State carried between the JAX package and the port.
 
-The system has no weights; what crosses is configuration (the shared
-frozen dataclasses of ``respmon_tpu.config``) and measurement state.  A
+The system has no weights; what crosses is configuration and measurement
+state.  A configuration crosses as one of the frozen dataclasses of
+``respmon_tpu/config.py``: ``config_from_reference`` rebuilds it as the
+port's class of the same name, without importing that package.  A
 ``MeasureState`` travels as ``{field: numpy array}``, the form
-``respmon_tpu/runtime/checkpoint.py`` writes.
+``respmon_tpu/runtime/checkpoint.py`` writes; in flow mode it carries the
+tracked points, the previous crop and the motion ring, so a measurement
+begun in one package continues in the other.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import dataclasses
+from typing import Any, Mapping
 
 import numpy as np
 import torch
 
+from respmon_tpu_torch import config as config_mod
+from respmon_tpu_torch import device as device_mod
 from respmon_tpu_torch.pipeline.motion import MeasureState
+
+_CONFIG_CLASSES = {cls.__name__: cls for cls in (
+    config_mod.FeatureParams, config_mod.LKParams,
+    config_mod.CalibrationConfig, config_mod.MeasureConfig,
+    config_mod.MonitorConfig)}
+
+
+def config_from_reference(obj: Any):
+    """The port's config dataclass for an instance of the JAX package's
+    class of the same name (any of the five; nested ones convert too).
+
+    The two classes must have exactly the same fields: one that either
+    side lacks raises ``TypeError``."""
+    if not dataclasses.is_dataclass(obj) or isinstance(obj, type):
+        raise TypeError(f"not a config dataclass instance: {obj!r}")
+    cls = _CONFIG_CLASSES.get(type(obj).__name__)
+    if cls is None:
+        raise TypeError(f"no port config class named {type(obj).__name__}")
+    theirs = [f.name for f in dataclasses.fields(obj)]
+    ours = [f.name for f in dataclasses.fields(cls)]
+    if set(theirs) != set(ours):
+        raise TypeError(
+            f"{cls.__name__}: fields differ; unknown "
+            f"{sorted(set(theirs) - set(ours))}, missing "
+            f"{sorted(set(ours) - set(theirs))}")
+    kwargs = {}
+    for name in theirs:
+        value = getattr(obj, name)
+        if dataclasses.is_dataclass(value) and not isinstance(value, type):
+            value = config_from_reference(value)
+        kwargs[name] = value
+    return cls(**kwargs)
+
+
+def config_to_dict(cfg: Any) -> dict:
+    """A config dataclass (either package's) as nested plain dicts."""
+    if not dataclasses.is_dataclass(cfg) or isinstance(cfg, type):
+        raise TypeError(f"not a config dataclass instance: {cfg!r}")
+    return dataclasses.asdict(cfg)
 
 
 def measure_state_from_numpy(d: Mapping[str, np.ndarray],
                              device=None) -> MeasureState:
-    """A port ``MeasureState`` from ``{field: array}`` (dtypes kept)."""
+    """A port ``MeasureState`` from ``{field: array}`` (dtypes kept), on
+    the card unless ``device`` says otherwise."""
     missing = set(MeasureState._fields) - set(d)
     if missing:
         raise KeyError(f"MeasureState fields missing: {sorted(missing)}")
+    device = device_mod.resolve(device)
     return MeasureState(**{
         f: torch.from_numpy(np.array(d[f], copy=True)).to(device)
         for f in MeasureState._fields})

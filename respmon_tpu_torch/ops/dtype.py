@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from respmon_tpu_torch import device as device_mod
+
 
 def uint8_to_float(img: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 [0,255] -> float [0,1], bit-exact to the host reference chain.
@@ -43,13 +45,14 @@ def ingest_frames(frames, dtype=torch.float32, device=None) -> torch.Tensor:
     """Stage a frame batch for the device: uint8 ships as bytes (widened by
     the consuming stage), anything else casts to the compute ``dtype``.
 
-    ``frames`` is a numpy array or a tensor; ``device`` defaults to the
-    tensor's own device (CPU for numpy input).  uint8 ingest implies
-    float32 compute, as in the JAX package."""
+    ``frames`` is a numpy array or a tensor; ``device=None`` means the
+    card (``device.resolve``: a CUDA tensor stays where it is, numpy and
+    CPU tensors go to ``cuda:0``, and without a card it raises), so a CPU
+    run passes ``device="cpu"``.  uint8 ingest implies float32 compute, as
+    in the JAX package."""
     if isinstance(frames, np.ndarray):
         frames = torch.from_numpy(np.ascontiguousarray(frames))
-    if device is None:
-        device = frames.device
+    device = device_mod.resolve(device, frames)
     if frames.dtype == torch.uint8:
         if dtype != torch.float32:
             raise ValueError(

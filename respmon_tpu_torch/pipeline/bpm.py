@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from respmon_tpu.config import MeasureConfig
+from respmon_tpu_torch.config import MeasureConfig
 from respmon_tpu_torch.ops import filters, gaussfit, peaks
 
 

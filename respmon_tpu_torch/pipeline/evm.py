@@ -16,7 +16,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from respmon_tpu.config import CalibrationConfig
+from respmon_tpu_torch.config import CalibrationConfig
 from respmon_tpu_torch.ops import ccl, pyramid_cuda
 from respmon_tpu_torch.ops.dtype import float_to_uint8, uint8_to_float
 from respmon_tpu_torch.ops.fft_bandpass import temporal_bandpass_fft

@@ -1,9 +1,21 @@
-"""Per-clip motion extraction state and the ROI crop.
+"""Per-frame motion extraction: the reference's measure-state inner loop.
 
-Port of the average-mode part of ``respmon_tpu/pipeline/motion.py``
-(reference base.py:354-358, 464-494): the bucketed ROI crop with its
-validity mask, and the measurement state whose rings the whole-clip path
-returns.  Flow mode (corners, LK, PCA) is not ported yet and raises.
+Port of ``respmon_tpu/pipeline/motion.py`` (reference base.py:354-407 +
+464-494): crop the frame to the calibrated ROI, then either
+
+  - 'average': mean of the cropped pixels (base.py:355-358), or
+  - 'flow': Shi-Tomasi corners on the first frame (error if none),
+    pyramidal LK tracking afterwards, surviving-point bookkeeping, NaN on
+    lost tracking, mean (old - new) displacement pushed to a motion ring,
+    and a full-ring PCA first-eigenvector projection of the newest sample
+    (base.py:360-407);
+
+plus the ring discipline (popleft at capacity, base.py:473-475) and the
+time axis t += 1/fps (base.py:481-484).  The ROI crop is a *bucketed*
+window (ROI dims rounded up to ``roi_bucket``) with a validity mask.  The
+state is a NamedTuple of tensors; ``measure_step`` returns a new one and
+changes nothing in place.  Not ported yet: ``relock_state`` and the
+carried LK cache of the fleet step (``FlowCache``, ``measure_step_cached``).
 """
 
 from __future__ import annotations
@@ -13,12 +25,14 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from respmon_tpu.config import FeatureParams, LKParams, MonitorConfig
+from respmon_tpu_torch import device as device_mod
+from respmon_tpu_torch.config import FeatureParams, LKParams, MonitorConfig
+from respmon_tpu_torch.ops import corners, lk, pca
 
 
 # Copied from respmon_tpu/pipeline/motion.py:37-84 (that module imports
 # jax), without its LK sampling-mode fields: those select TPU gather
-# strategies, and the port will have one LK path.
+# strategies, and the port has one LK path.
 @dataclasses.dataclass(frozen=True)
 class MeasureSpec:
     """Static (hashable) parameters of the measurement program."""
@@ -66,6 +80,9 @@ class MeasureState(NamedTuple):
 
 def init_state(spec: MeasureSpec, roi: Sequence[int],
                dtype=torch.float32, device=None) -> MeasureState:
+    """An empty measurement state on ``device`` (``None``: the card, see
+    ``device.resolve``)."""
+    device = device_mod.resolve(device)
     n = spec.buffer_length
     m = spec.features.max_corners
 
@@ -107,3 +124,132 @@ def crop_clip_and_mask(frames: torch.Tensor, roi: Sequence[int],
     (sy, sx), mask = _roi_window_mask(roi, spec, frames.device)
     crops = frames[:, sy:sy + spec.crop_h, sx:sx + spec.crop_w]
     return crops, mask
+
+
+def _crop_and_mask(frame: torch.Tensor, roi: Sequence[int],
+                   spec: MeasureSpec):
+    """Bucketed ROI crop of a single (H, W) frame and its mask."""
+    (sy, sx), mask = _roi_window_mask(roi, spec, frame.device)
+    return frame[sy:sy + spec.crop_h, sx:sx + spec.crop_w], mask
+
+
+def _to_u8_scale(img: torch.Tensor) -> torch.Tensor:
+    """float [0,1] -> float on the uint8 [0,255] lattice (the reference runs
+    corners/LK on float_to_uint8 crops, base.py:364-371)."""
+    return torch.trunc(img * 255.0)
+
+
+def _push(ring: torch.Tensor, value) -> torch.Tensor:
+    value = torch.as_tensor(value, dtype=ring.dtype, device=ring.device)
+    return torch.cat([ring[1:], value.reshape((1,) + ring.shape[1:])], dim=0)
+
+
+def measure_step(state: MeasureState, frame,
+                 spec: MeasureSpec) -> Tuple[MeasureState, torch.Tensor]:
+    """One frame of the measure state: crop -> motion value -> ring push.
+
+    Returns (new_state, sample).  ``new_state.error`` reports the
+    reference's error triggers (no keypoints at init / NaN from lost
+    tracking).  The frame is computed where the state lives.
+
+    ``frame`` (a tensor or numpy array) may be float in [0, 1] (the
+    capture convention) or native ``uint8``.  The u8 path crops the u8 frame, then widens the crop to
+    float on the exact [0, 255] integer lattice, which is what the
+    reference's cv2 kernels consume (base.py:364-371): it skips the float
+    path's ``trunc(f * 255)`` reconstruction, and both ingests land on
+    identical u8-lattice crops.
+    """
+    frame = torch.as_tensor(frame).to(state.data.device)
+    roi = [int(v) for v in state.roi.tolist()]
+    crop, mask = _crop_and_mask(frame, roi, spec)
+    u8_in = frame.dtype == torch.uint8
+    dtype = state.data.dtype
+    if u8_in:
+        crop = crop.to(dtype)          # exact [0, 255] lattice
+
+    if spec.method == "average":
+        total = torch.where(mask, crop, 0).sum()
+        sample = total / torch.clamp(mask.sum(), min=1)
+        if u8_in:
+            sample = sample * (1.0 / 255.0)   # match the [0, 1] float scale
+        new_state = state
+        error = state.error
+    else:
+        sample, new_state, error = _flow_motion(state, crop, mask, spec,
+                                                crop_is_u8_scale=u8_in)
+
+    t_next = torch.where(state.count == 0, 0.0,
+                         state.t[-1] + 1.0 / spec.fps)
+    new_state = new_state._replace(
+        data=_push(state.data, sample),
+        t=_push(state.t, t_next),
+        count=torch.clamp(state.count + 1, max=spec.buffer_length),
+        error=error,
+    )
+    return new_state, sample
+
+
+def flow_update(fr: lk.FlowResult, pts, valid, motion_xy, motion_count,
+                buffer_length: int, dtype):
+    """Shared post-LK bookkeeping (base.py:377-407): surviving-point
+    selection, mean (old - new) displacement, motion-ring push, PCA
+    projection, NaN on lost tracking.  Used by both the per-frame step and
+    the whole-clip path so the two cannot desynchronize.  Once tracking is
+    lost the ring and its count freeze.
+
+    Returns (sample, good_mask, motion_xy, motion_count, lost).
+    """
+    good = fr.status & valid
+    n_good = good.sum()
+    lost = n_good == 0   # -> NaN sample (base.py:373-386)
+
+    disp = pts - fr.pts  # old - new (base.py:388)
+    gw = good.to(dtype)[:, None]
+    mean_disp = (disp * gw).sum(dim=0) / torch.clamp(n_good, min=1).to(dtype)
+
+    motion_xy = torch.where(
+        lost, motion_xy,
+        torch.cat([motion_xy[1:], mean_disp[None].to(motion_xy.dtype)],
+                  dim=0))
+    motion_count = torch.where(
+        lost, motion_count,
+        torch.clamp(motion_count + 1, max=buffer_length))
+
+    # PCA projection of the newest sample once >= 2 motions buffered
+    # (base.py:396-407); before that the sample is 0.0.
+    mmask = torch.arange(buffer_length, device=motion_xy.device) >= \
+        (buffer_length - motion_count)
+    proj = pca.pca_project_last(motion_xy, mmask)
+    sample = torch.where(motion_count >= 2, proj, 0.0)
+    sample = torch.where(lost, float("nan"), sample).to(dtype)
+    return sample, good, motion_xy, motion_count, lost
+
+
+def _flow_motion(state: MeasureState, crop, mask, spec: MeasureSpec,
+                 crop_is_u8_scale: bool = False):
+    crop_u8 = torch.where(mask, crop, 0) if crop_is_u8_scale \
+        else _to_u8_scale(torch.where(mask, crop, 0.0))
+    crop_u8 = crop_u8.to(state.prev_crop.dtype)
+
+    if not bool(state.initialized):
+        cs = corners.good_features_to_track(
+            crop_u8, max_corners=spec.features.max_corners,
+            quality_level=spec.features.quality_level,
+            min_distance=spec.features.min_distance,
+            block_size=spec.features.block_size, roi_mask=mask)
+        err = cs.count < 1  # "No motion key points found" (base.py:367-368)
+        new = state._replace(
+            initialized=torch.ones_like(state.initialized),
+            prev_crop=crop_u8, pts=cs.pts, pts_valid=cs.valid)
+        return torch.zeros((), dtype=crop.dtype, device=crop.device), new, err
+
+    fr = lk.calc_optical_flow_pyr_lk(
+        state.prev_crop, crop_u8, state.pts, state.pts_valid,
+        win=spec.lk.win_size[0], max_level=spec.lk.max_level,
+        max_iters=spec.lk.max_iters, eps=spec.lk.epsilon)
+    sample, good, motion_xy, motion_count, lost = flow_update(
+        fr, state.pts, state.pts_valid, state.motion_xy,
+        state.motion_count, spec.buffer_length, crop.dtype)
+    new = state._replace(prev_crop=crop_u8, pts=fr.pts, pts_valid=good,
+                         motion_xy=motion_xy, motion_count=motion_count)
+    return sample, new, lost

@@ -22,6 +22,8 @@ torch.set_num_threads(1)
 FPS = 10.0
 CAL = CalibrationConfig(buffer_length=64, pyramid_levels=6,
                         skip_levels_at_top=2)
+# One JAX-side config goes to both packages: the port gets its own class.
+port_cfg = interop.config_from_reference
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -65,7 +67,9 @@ def test_bpm_trace_matches_jax(jax_result):
 
 
 def test_process_clip_f32_matches_jax(clip_f32, jax_result):
-    got = tscan.process_clip(clip_f32, FPS, MonitorConfig(calibration=CAL))
+    got = tscan.process_clip(clip_f32, FPS,
+                             port_cfg(MonitorConfig(calibration=CAL)),
+                             device="cpu")
     assert got.found and got.final_bpm is not None
     _assert_runs_match(got, jax_result)
     np.testing.assert_allclose(got.measure.samples.numpy(),
@@ -76,14 +80,14 @@ def test_process_clip_f32_matches_jax(clip_f32, jax_result):
 def test_process_clip_u8_matches_jax(clip_f32):
     u8 = np.clip(np.round(clip_f32 * 255.0), 0, 255).astype(np.uint8)
     cfg = MonitorConfig(calibration=CAL)
-    got = tscan.process_clip(u8, FPS, cfg)
+    got = tscan.process_clip(u8, FPS, port_cfg(cfg), device="cpu")
     assert got.measure.samples.dtype == torch.float32
     _assert_runs_match(got, jscan.process_clip(u8, FPS, cfg))
 
 
 def test_process_clip_auto_matches_jax(clip_f32, jax_result):
     cfg = MonitorConfig(calibration=CAL)
-    got = tscan.process_clip_auto(clip_f32, FPS, cfg)
+    got = tscan.process_clip_auto(clip_f32, FPS, port_cfg(cfg), device="cpu")
     assert len(got.episodes) == 1 and got.recoveries == 0
     assert not got.exhausted
     _assert_runs_match(got.episodes[0].result, jax_result)
@@ -95,24 +99,31 @@ def test_process_clip_not_found():
     vid = np.full((40, 48, 64), 0.5, np.float32)
     cfg = MonitorConfig(calibration=CalibrationConfig(
         buffer_length=32, pyramid_levels=4, skip_levels_at_top=1))
-    got = tscan.process_clip(vid, FPS, cfg)
+    got = tscan.process_clip(vid, FPS, port_cfg(cfg), device="cpu")
     assert not got.found and got.final_bpm is None
-    auto = tscan.process_clip_auto(vid, FPS, cfg)
+    auto = tscan.process_clip_auto(vid, FPS, port_cfg(cfg), device="cpu")
     assert auto.final_bpm is None
     assert all(not ep.result.found for ep in auto.episodes)
 
 
 def test_flow_mode_raises(clip_f32):
-    cfg = MonitorConfig(motion_extraction_method="flow", calibration=CAL)
-    with pytest.raises(NotImplementedError, match="flow mode"):
-        tscan.process_clip(clip_f32, FPS, cfg)
+    # Flow mode is ported now: what still raises is a clip too short to
+    # calibrate on, and the same clip at full length runs through.
+    cfg = port_cfg(MonitorConfig(motion_extraction_method="flow",
+                                 calibration=CAL))
+    with pytest.raises(ValueError, match="shorter than calibration"):
+        tscan.process_clip(clip_f32[:66], FPS, cfg, device="cpu")
+    got = tscan.process_clip(clip_f32, FPS, cfg, device="cpu")
+    assert got.found and bool(got.measure.final_state.initialized)
 
 
 def test_final_state_matches_jax_through_interop(jax_result, clip_f32):
-    got = tscan.process_clip(clip_f32, FPS, MonitorConfig(calibration=CAL))
+    got = tscan.process_clip(clip_f32, FPS,
+                             port_cfg(MonitorConfig(calibration=CAL)),
+                             device="cpu")
     jax_state = {f: np.asarray(v)
                  for f, v in jax_result.measure.final_state._asdict().items()}
-    carried = interop.measure_state_from_numpy(jax_state)
+    carried = interop.measure_state_from_numpy(jax_state, device="cpu")
     for field in carried._fields:
         a = getattr(carried, field)
         b = getattr(got.measure.final_state, field)
@@ -127,27 +138,30 @@ def test_final_state_matches_jax_through_interop(jax_result, clip_f32):
 def test_interop_round_trip(jax_result):
     d = {f: np.asarray(v)
          for f, v in jax_result.measure.final_state._asdict().items()}
-    back = interop.measure_state_to_numpy(interop.measure_state_from_numpy(d))
+    back = interop.measure_state_to_numpy(
+        interop.measure_state_from_numpy(d, device="cpu"))
     assert set(back) == set(d)
     for f in d:
         assert back[f].dtype == d[f].dtype and np.array_equal(back[f], d[f])
     with pytest.raises(KeyError):
-        interop.measure_state_from_numpy({"data": d["data"]})
+        interop.measure_state_from_numpy({"data": d["data"]}, device="cpu")
 
 
 def test_port_never_imports_jax():
     code = (
         "import sys, numpy as np\n"
-        "from respmon_tpu.config import CalibrationConfig, MonitorConfig\n"
-        "from respmon_tpu.io.synthetic import breathing_clip\n"
         "import respmon_tpu_torch, respmon_tpu_torch.interop\n"
+        "from respmon_tpu_torch.config import CalibrationConfig, "
+        "MonitorConfig\n"
+        "from respmon_tpu_torch.io.synthetic import breathing_clip\n"
         "from respmon_tpu_torch.pipeline import scan\n"
         "clip = breathing_clip(num_frames=40, height=48, width=64, "
         "patch_center=(24, 32), patch_size=(12, 16), amplitude=0.12)\n"
         "cfg = MonitorConfig(calibration=CalibrationConfig("
         "buffer_length=32, pyramid_levels=4, skip_levels_at_top=1))\n"
-        "scan.process_clip(clip, 10.0, cfg)\n"
+        "scan.process_clip(clip, 10.0, cfg, device='cpu')\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'respmon_tpu' not in sys.modules, 'respmon_tpu imported'\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
