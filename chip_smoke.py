@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``respmon_tpu_torch/csrc`` (into
-``build/``), checks each against its plain PyTorch version on the card,
-drives the whole-clip path ``process_clip`` at 640x480 and one 1080p
-calibration, and checks what comes out.  Each phase prints one JSON line;
+Builds the port's CUDA kernels from ``respmon_tpu_torch/csrc`` (one nvcc
+per source, into ``build/``), checks each against its plain
+PyTorch version on the card, and drives the whole-clip path
+``process_clip`` at 640x480 in average mode and in flow mode (Shi-Tomasi
+corners, pyramidal LK, 2x2 PCA), one 640x480 calibration with the
+band-matrix pyramid (K3) in place of the stencil one (K1), and one 1080p
+calibration, checking what comes out.  Each phase prints one JSON line;
 then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits 1.
-Imports nothing of JAX.
+Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +28,12 @@ import time
 FPS = 10.0
 REPEATS = 20
 PYRAMID_CU = "respmon_tpu_torch/csrc/pyramid.cu"
+BAND_CU = "respmon_tpu_torch/csrc/band_mm.cu"
 PALLAS = "respmon_tpu/ops/pyramid_pallas.py"
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# rate and the float32 rate outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def emit(obj) -> None:
@@ -70,6 +78,31 @@ def max_abs(got, want) -> float:
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes that
+    must move (every input read once, every output written once) over the
+    memory rate and the operations over the float32 rate."""
+    by_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from respmon_tpu_torch.ops import pyramid_cuda, pyramid_mm
+
+    pyramid_cuda.reset_launches()
+    pyramid_mm.reset_launches()
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count since ``reset_launches``."""
+    from respmon_tpu_torch.ops import pyramid_cuda, pyramid_mm
+
+    return {**pyramid_cuda.LAUNCHES, **pyramid_mm.LAUNCHES}
+
+
 def quantize(clip):
     import numpy as np
 
@@ -92,13 +125,18 @@ def phase_device():
 
 
 def phase_build():
-    from respmon_tpu_torch.ops import _build, pyramid_cuda
+    from respmon_tpu_torch.ops import _build, pyramid_cuda, pyramid_mm
 
-    t0 = time.perf_counter()
-    lib = _build.build("pyramid")
+    root = _build.BUILD_DIR.parent.parent
+    libraries = {}
+    for name in ("pyramid", "band_mm"):
+        t0 = time.perf_counter()
+        path = _build.build(name)
+        libraries[name] = {"library": str(path.relative_to(root)),
+                           "seconds": time.perf_counter() - t0}
     pyramid_cuda._lib()
-    emit({"phase": "build", "library": str(lib.relative_to(
-        _build.BUILD_DIR.parent.parent)), "seconds": time.perf_counter() - t0})
+    pyramid_mm._lib()
+    emit({"phase": "build", "libraries": libraries})
 
 
 def phase_widen(dev):
@@ -116,8 +154,8 @@ def phase_widen(dev):
 
 
 def phase_kernels(dev):
-    """Each kernel and composition against its plain version on the card:
-    equal bit for bit, and timed."""
+    """Each stencil kernel and composition against its plain version on
+    the card: equal bit for bit, and timed."""
     import torch
 
     from respmon_tpu_torch.ops import pyramid, pyramid_cuda as pc
@@ -157,42 +195,147 @@ def phase_kernels(dev):
         check(row["max_abs_err"] == 0.0, f"{row['op']} {row['shape']} "
               f"equals its plain version bit for bit")
 
-    # The two kernels at the shapes the 640x480 path gives them.
+    # The two kernels at the shapes the 640x480 path gives them.  No one
+    # PyTorch call computes either function (a strided convolution needs a
+    # reflect pad before it, pyrUp two phases), so there is no library time.
     v = video((128, 480, 640))
     g = pyramid.gaussian_pyramid(v, 6)
     g4, g5 = g[4].contiguous(), g[5].contiguous()
+    t_len, h, w = v.shape
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    # pyr_down: 5 column sums of 5 taps and one row sum, 9 operations each.
+    down_bound = bound(4 * t_len * (h * w + ho * wo), 54 * t_len * ho * wo)
+    # lap_level: three H phases, one W phase (<= 4 operations each), one
+    # subtraction per output.
+    lap_bound = bound(4 * (2 * g4.numel() + g5.numel()), 17 * g4.numel())
     kernels = [
         {"name": "pyr_down_f32", "route": "cuda", "source": PYRAMID_CU,
-         "replaces": f"{PALLAS}:244",
+         "replaces": f"{PALLAS}:275",
          "shape": list(v.shape),
          "max_abs_err": max_abs([pc.pyr_down(v)], [pyramid.pyr_down(v)]),
          "ms": cuda_ms(lambda: pc.pyr_down(v)),
-         "plain_ms": cuda_ms(lambda: pyramid.pyr_down(v))},
+         "plain_ms": cuda_ms(lambda: pyramid.pyr_down(v)),
+         **down_bound, "library_ms": None},
         {"name": "lap_level_f32", "route": "cuda", "source": PYRAMID_CU,
-         "replaces": f"{PALLAS}:294",
+         "replaces": f"{PALLAS}:314",
          "shape": list(g4.shape),
          "max_abs_err": max_abs(
              [pc.lap_level(g4, g5)],
              [g4 - pyramid.pyr_up(g5, tuple(g4.shape[-2:]))]),
          "ms": cuda_ms(lambda: pc.lap_level(g4, g5)),
          "plain_ms": cuda_ms(
-             lambda: g4 - pyramid.pyr_up(g5, tuple(g4.shape[-2:])))},
+             lambda: g4 - pyramid.pyr_up(g5, tuple(g4.shape[-2:]))),
+         **lap_bound, "library_ms": None},
     ]
     for k in kernels:
         check(k["max_abs_err"] == 0.0, f"{k['name']} equals its plain version")
     return kernels
 
 
-class plain_pyramid:
-    """Route evm's Laplacian levels through the plain version (on any
-    device) inside the ``with`` block."""
+K3_TOL = 1e-5   # summation order differs from torch.matmul's and from K1's
+
+
+def phase_kernels_k3(dev):
+    """The band-matrix pyramid (K3) against its plain version (the same
+    chain through torch.matmul) and against the stencil kernels (K1)."""
+    import torch
+
+    from respmon_tpu_torch.ops import pyramid_cuda as pc, pyramid_mm as pm
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for shape, levels, skip in [((128, 480, 640), 9, 4),
+                                ((8, 1080, 1920), 9, 4),
+                                ((3, 135, 192), 7, 3), ((2, 5, 7), 3, 0)]:
+        v = torch.rand(shape, generator=gen, device=dev)
+        got = pm.laplacian_band_levels_mm(v, levels, skip)
+        torch.cuda.synchronize()
+        row = {"op": "laplacian_band_levels_mm", "shape": shape,
+               "levels": levels, "skip": skip,
+               "max_abs_err": max_abs(
+                   got, pm.laplacian_band_levels_mm_ref(v, levels, skip)),
+               "max_abs_err_vs_k1": max_abs(
+                   got, pc.laplacian_band_levels(v, levels, skip)),
+               "ms": cuda_ms(lambda: pm.laplacian_band_levels_mm(
+                   v, levels, skip)),
+               "matmul_ms": cuda_ms(lambda: pm.laplacian_band_levels_mm_ref(
+                   v, levels, skip)),
+               "k1_ms": cuda_ms(lambda: pc.laplacian_band_levels(
+                   v, levels, skip))}
+        emit({"phase": "kernel_parity", **row})
+        check(row["max_abs_err"] <= K3_TOL,
+              f"K3 {shape} within {K3_TOL} of its plain version")
+        check(row["max_abs_err_vs_k1"] <= K3_TOL,
+              f"K3 {shape} within {K3_TOL} of K1")
+        del v, got
+
+    # The two kernels at the first (largest) products of the 640x480 chain,
+    # and the minuend form at its first kept level.  The matrices are
+    # sparse (<= 5 nonzeros a row): the bound counts the operations their
+    # nonzeros need, not those of the dense product.
+    v = torch.rand((128, 480, 640), generator=gen, device=dev)
+    dh, dw_t, uh, uw_t = pm._operators(480, 640, 9, 4, v.device)
+    left_a, left_b = dh[0], v
+    right_b, right_a = pm.band_left(left_a, left_b), dw_t[0]
+    g4 = pc.gauss_level(v, 4)
+    up_h = pm.band_left(uh[0], pc.pyr_down(g4))
+    err_minuend = max_abs([pm.band_right(up_h, uw_t[0], g4)],
+                          [g4 - torch.matmul(up_h, uw_t[0])])
+    check(err_minuend <= K3_TOL, "band_right with a minuend")
+
+    def product_bound(a, t_len, m, k, n, rows_per_nonzero):
+        """Bound of a (m,k)x(k,n) product per frame with the sparse shared
+        matrix ``a``: each nonzero meets ``rows_per_nonzero`` values of the
+        batched operand."""
+        n_bytes = 4 * (a.numel() + t_len * (m * k + k * n + m * n)
+                       - t_len * a.numel())
+        needed = 2.0 * int((a != 0).sum()) * rows_per_nonzero * t_len
+        return bound(n_bytes, needed)
+
+    t_len = v.shape[0]
+    m, k = left_a.shape
+    n = left_b.shape[2]
+    n2 = right_a.shape[1]
+    kernels = [
+        {"name": "band_left_f32", "route": "cuda", "source": BAND_CU,
+         "replaces": f"{PALLAS}:216",
+         "shape": [list(left_a.shape), list(left_b.shape)],
+         "max_abs_err": max_abs([pm.band_left(left_a, left_b)],
+                                [torch.matmul(left_a, left_b)]),
+         "ms": cuda_ms(lambda: pm.band_left(left_a, left_b)),
+         "plain_ms": cuda_ms(lambda: torch.matmul(left_a, left_b)),
+         **product_bound(left_a, t_len, m, k, n, n)},
+        {"name": "band_right_f32", "route": "cuda", "source": BAND_CU,
+         "replaces": f"{PALLAS}:216",
+         "shape": [list(right_b.shape), list(right_a.shape)],
+         "max_abs_err": max(err_minuend, max_abs(
+             [pm.band_right(right_b, right_a)],
+             [torch.matmul(right_b, right_a)])),
+         "ms": cuda_ms(lambda: pm.band_right(right_b, right_a)),
+         "plain_ms": cuda_ms(lambda: torch.matmul(right_b, right_a)),
+         **product_bound(right_a, t_len, m, n, n2, m)},
+    ]
+    for kern in kernels:
+        # torch.matmul is both the plain version and the one library call
+        # that computes the same function.
+        kern["library_ms"] = kern["plain_ms"]
+        check(kern["max_abs_err"] <= K3_TOL,
+              f"{kern['name']} within {K3_TOL} of torch.matmul")
+    return kernels
+
+
+class pyramid_route:
+    """Route evm's Laplacian levels through ``fn`` (by default the plain
+    version, on any device) inside the ``with`` block."""
+
+    def __init__(self, fn=None):
+        self._fn = fn
 
     def __enter__(self):
         from respmon_tpu_torch.ops import pyramid_cuda
 
         self._saved = pyramid_cuda.laplacian_band_levels
         pyramid_cuda.laplacian_band_levels = \
-            pyramid_cuda.laplacian_band_levels_ref
+            self._fn or pyramid_cuda.laplacian_band_levels_ref
         return self
 
     def __exit__(self, *exc):
@@ -202,7 +345,7 @@ class plain_pyramid:
         return False
 
 
-def _same_run(a, b, what: str) -> float:
+def _same_run(a, b, what: str, bpm_rtol: float = 1e-5) -> float:
     """Check two ClipRunResults agree; return max relative BPM gap."""
     check(a.found and b.found, f"{what}: both found an ROI")
     check(a.roi == b.roi, f"{what}: ROI {a.roi} == {b.roi}")
@@ -210,74 +353,28 @@ def _same_run(a, b, what: str) -> float:
     check(bool((ha == hb).all()), f"{what}: has_bpm equal")
     ba, bb = a.measure.bpm.cpu()[ha], b.measure.bpm.cpu()[hb]
     rel = float(((ba - bb).abs() / bb.abs()).max()) if int(ha.sum()) else 0.0
-    check(rel <= 1e-5, f"{what}: BPM within rtol 1e-5 (got {rel})")
+    check(rel <= bpm_rtol, f"{what}: BPM within rtol {bpm_rtol} (got {rel})")
     return rel
 
 
-def phase_small_cross_check(dev):
-    """The fixture of the CPU parity tests on the card against the CPU
-    (the plain path the tests hold against the JAX package)."""
+def _bbox(r):
     import torch
 
-    from respmon_tpu.config import CalibrationConfig, MonitorConfig
-    from respmon_tpu.io.synthetic import breathing_clip
-    from respmon_tpu_torch.pipeline import evm, scan
-
-    cfg = MonitorConfig(calibration=CalibrationConfig(
-        buffer_length=64, pyramid_levels=6, skip_levels_at_top=2))
-    clip = breathing_clip(num_frames=64 + 1 + 80, height=120, width=160,
-                          fps=FPS, bpm=18.0, patch_center=(60, 80),
-                          patch_size=(30, 40), amplitude=0.12)
-    on_card = scan.process_clip(torch.from_numpy(clip).to(dev), FPS, cfg)
-    on_cpu = scan.process_clip(clip, FPS, cfg)
-    rel = _same_run(on_card, on_cpu, "120x160 card vs CPU")
-
-    const = torch.full((32, 48, 64), 0.5, device=dev)
-    found = bool(evm.locate(const, FPS, CalibrationConfig(
-        pyramid_levels=4, skip_levels_at_top=1, buffer_length=32)).found)
-    check(not found, "constant video gives found=False on the card")
-    emit({"phase": "small_cross_check", "roi": on_card.roi,
-          "bpm_max_rel_vs_cpu": rel, "constant_video_found": found})
+    return [int(v) for v in torch.stack([r.x, r.y, r.w, r.h]).tolist()]
 
 
-def phase_slice(dev):
-    """process_clip at 640x480 u8 (the bench.py headline fixture)."""
+def _bpm_checks(m, cfg):
+    """Finite BPM estimates; (count, tail median, gap of the tail median to
+    the scipy golden chain run on the same samples)."""
     import numpy as np
-    import torch
-
-    from respmon_tpu.config import MonitorConfig
-    from respmon_tpu.io.synthetic import breathing_clip
-    from respmon_tpu_torch.ops import filters, pyramid_cuda
-    from respmon_tpu_torch.pipeline import evm, motion, scan
     # The repo's tests/ is no package; a site-packages ``tests`` would
     # shadow it, so the golden oracle package is imported from tests/.
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "tests"))
+    tests_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
     from golden import reference_numpy as golden
 
-    cfg = MonitorConfig()
-    cal_len = cfg.calibration.buffer_length
-    clip = breathing_clip(num_frames=cal_len + 1 + 128, height=480,
-                          width=640, fps=FPS, bpm=18.0,
-                          patch_center=(240, 320), patch_size=(80, 100),
-                          amplitude=0.12, motion_px=2.0, texture_motion=True)
-    frames = torch.from_numpy(quantize(clip)).to(dev)
-    del clip
-
-    pyramid_cuda.reset_launches()
-    res, first_s = wall_s(lambda: scan.process_clip(frames, FPS, cfg))
-    launches = dict(pyramid_cuda.LAUNCHES)
-    check(launches["pyr_down"] > 0 and launches["lap_level"] > 0,
-          f"the path launched both kernels: {launches}")
-    with plain_pyramid():
-        plain = scan.process_clip(frames, FPS, cfg)
-    check(pyramid_cuda.LAUNCHES == launches, "plain run launched nothing")
-    rel = _same_run(res, plain, "640x480 kernels vs plain")
-
-    m = res.measure
-    check(m.samples.shape == (frames.shape[0] - cal_len - 2,),
-          "one sample per measured frame")
-    check(bool(torch.isfinite(m.samples).all()), "samples finite")
     has = m.has_bpm.cpu().numpy()
     bpm = m.bpm.cpu().numpy()
     check(has.any() and np.isfinite(bpm[has]).all(), "finite BPM estimates")
@@ -293,6 +390,78 @@ def phase_slice(dev):
         oracle.append(ob if ob is not None else np.nan)
     oracle_delta = abs(tail_median - float(np.nanmedian(oracle)))
     check(np.isfinite(oracle_delta), "finite bpm_oracle_delta")
+    return int(has.sum()), tail_median, oracle_delta
+
+
+def phase_small_cross_check(dev):
+    """The fixture of the CPU parity tests on the card against the CPU
+    (the plain path the tests hold against the JAX package)."""
+    import torch
+
+    from respmon_tpu_torch.config import CalibrationConfig, MonitorConfig
+    from respmon_tpu_torch.io.synthetic import breathing_clip
+    from respmon_tpu_torch.pipeline import evm, scan
+
+    cfg = MonitorConfig(calibration=CalibrationConfig(
+        buffer_length=64, pyramid_levels=6, skip_levels_at_top=2))
+    clip = breathing_clip(num_frames=64 + 1 + 80, height=120, width=160,
+                          fps=FPS, bpm=18.0, patch_center=(60, 80),
+                          patch_size=(30, 40), amplitude=0.12)
+    on_card = scan.process_clip(clip, FPS, cfg)
+    check(on_card.measure.samples.device.type == "cuda",
+          "process_clip(numpy) runs on the card by default")
+    on_cpu = scan.process_clip(clip, FPS, cfg, device="cpu")
+    rel = _same_run(on_card, on_cpu, "120x160 card vs CPU")
+
+    const = torch.full((32, 48, 64), 0.5, device=dev)
+    found = bool(evm.locate(const, FPS, CalibrationConfig(
+        pyramid_levels=4, skip_levels_at_top=1, buffer_length=32)).found)
+    check(not found, "constant video gives found=False on the card")
+    emit({"phase": "small_cross_check", "roi": on_card.roi,
+          "bpm_max_rel_vs_cpu": rel, "constant_video_found": found})
+
+
+def slice_frames(dev):
+    """The 640x480 u8 fixture of bench.py:116-125 on the card."""
+    import torch
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.io.synthetic import breathing_clip
+
+    cal_len = MonitorConfig().calibration.buffer_length
+    clip = breathing_clip(num_frames=cal_len + 1 + 128, height=480,
+                          width=640, fps=FPS, bpm=18.0,
+                          patch_center=(240, 320), patch_size=(80, 100),
+                          amplitude=0.12, motion_px=2.0, texture_motion=True)
+    return torch.from_numpy(quantize(clip)).to(dev)
+
+
+def phase_slice(frames):
+    """process_clip at 640x480 u8, average mode."""
+    import torch
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.ops import filters
+    from respmon_tpu_torch.pipeline import evm, motion, scan
+
+    cfg = MonitorConfig()
+    cal_len = cfg.calibration.buffer_length
+
+    reset_launches()
+    res, first_s = wall_s(lambda: scan.process_clip(frames, FPS, cfg))
+    launches = read_launches()
+    check(launches["pyr_down"] > 0 and launches["lap_level"] > 0,
+          f"the path launched both kernels: {launches}")
+    with pyramid_route():
+        plain = scan.process_clip(frames, FPS, cfg)
+    check(read_launches() == launches, "plain run launched nothing")
+    rel = _same_run(res, plain, "640x480 kernels vs plain")
+
+    m = res.measure
+    check(m.samples.shape == (frames.shape[0] - cal_len - 2,),
+          "one sample per measured frame")
+    check(bool(torch.isfinite(m.samples).all()), "samples finite")
+    n_has, tail_median, oracle_delta = _bpm_checks(m, cfg)
 
     # One warm run, split into its two stages.
     x, y, w, h = res.roi
@@ -306,19 +475,195 @@ def phase_slice(dev):
     _, measure_s = wall_s(lambda: scan.measure_clip(
         rest, res.roi, spec, coeffs, 10, cfg.measure).bpm)
     emit({"phase": "slice_640x480", "frames": list(frames.shape),
-          "roi": res.roi, "launches": launches, "has_bpm": int(has.sum()),
+          "roi": res.roi, "launches": launches, "has_bpm": n_has,
           "bpm_tail_median": tail_median, "bpm_oracle_delta": oracle_delta,
           "bpm_max_rel_vs_plain": rel, "first_process_clip_s": first_s,
           "process_clip_s": warm_s, "locate_s": locate_s,
           "measure_s": measure_s})
+    return res.roi, launches
+
+
+def phase_k3_locate(frames, roi):
+    """One 640x480 calibration with the band-matrix pyramid (K3) in place
+    of the stencil kernels: the same ROI, through K3's kernels."""
+    from respmon_tpu_torch.config import CalibrationConfig
+    from respmon_tpu_torch.ops import pyramid_mm
+    from respmon_tpu_torch.pipeline import evm
+
+    cfg = CalibrationConfig()
+    cal = frames[1:cfg.buffer_length + 1]
+    reset_launches()
+    with pyramid_route(pyramid_mm.laplacian_band_levels_mm):
+        res, first_s = wall_s(lambda: evm.locate(cal, FPS, cfg))
+    launches = read_launches()
+    check(launches["band_left"] > 0 and launches["band_right"] > 0,
+          f"the K3 calibration launched both band kernels: {launches}")
+    check(launches["pyr_down"] == 0 and launches["lap_level"] == 0,
+          "the K3 calibration launched no stencil kernel")
+    check(bool(res.found), "K3 locate found an ROI")
+    check(tuple(_bbox(res)) == tuple(roi),
+          f"K3 locate ROI {_bbox(res)} equals K1's {roi}")
+    with pyramid_route(pyramid_mm.laplacian_band_levels_mm):
+        _, k3_s = wall_s(lambda: evm.locate(cal, FPS, cfg).x)
+    _, k1_s = wall_s(lambda: evm.locate(cal, FPS, cfg).x)
+    emit({"phase": "k3_locate_640x480", "roi": _bbox(res),
+          "launches": launches, "first_locate_s": first_s,
+          "locate_s": k3_s, "k1_locate_s": k1_s})
     return launches
+
+
+# Flow fixture of the card-vs-CPU check; see phase_flow_slice.
+FLOW_SMALL = dict(num_frames=64 + 1 + 90, height=120, width=160, fps=FPS,
+                  bpm=18.0, patch_center=(60, 80), patch_size=(30, 40),
+                  amplitude=0.12, motion_px=2.0, texture_motion=True, seed=1)
+
+
+def phase_flow_slice(frames, roi):
+    """process_clip at 640x480 u8, flow mode; and the 120x160 fixture on
+    the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from respmon_tpu_torch.config import CalibrationConfig, MonitorConfig
+    from respmon_tpu_torch.io.synthetic import breathing_clip
+    from respmon_tpu_torch.ops import corners, filters, lk
+    from respmon_tpu_torch.pipeline import evm, motion, scan
+
+    cfg = MonitorConfig(motion_extraction_method="flow")
+    cal_len = cfg.calibration.buffer_length
+
+    reset_launches()
+    res, first_s = wall_s(lambda: scan.process_clip(frames, FPS, cfg))
+    launches = read_launches()
+    check(launches["pyr_down"] > 0 and launches["lap_level"] > 0,
+          f"the flow path launched both pyramid kernels: {launches}")
+    check(res.found and res.roi == tuple(roi),
+          f"flow ROI {res.roi} equals the average slice's {roi}")
+    check(res.error_frame is None, f"no tracking loss ({res.error_frame})")
+    m = res.measure
+    check(m.samples.shape == (frames.shape[0] - cal_len - 2,),
+          "one sample per measured frame")
+    check(bool(torch.isfinite(m.samples).all()), "flow samples finite")
+    n_has, tail_median, oracle_delta = _bpm_checks(m, cfg)
+    check(abs(tail_median - 18.0) <= 1.0,
+          f"flow tail median BPM {tail_median} within 1 of 18")
+    tracked = int(m.final_state.pts_valid.sum())
+    check(tracked >= 1, "at least one point tracked to the end")
+
+    # A warm run, then its stages one by one.
+    cal = frames[1:cal_len + 1]
+    rest = frames[cal_len + 2:]
+    x, y, w, h = res.roi
+    spec = motion.MeasureSpec.for_roi(cfg, 480, 640, w, h, FPS)
+    coeffs = filters.design_butter_lowpass(
+        cfg.calibration.freq_max * 0.5, FPS, cfg.measure.filter_order)
+    crops, mask = motion.crop_clip_and_mask(rest, res.roi, spec)
+    crop0 = torch.where(mask, crops[0], 0).to(torch.float32)
+    _, warm_s = wall_s(lambda: scan.process_clip(frames, FPS, cfg))
+    _, locate_s = wall_s(lambda: evm.locate(cal, FPS, cfg.calibration).x)
+    cs, corners_s = wall_s(lambda: corners.good_features_to_track(
+        crop0, max_corners=spec.features.max_corners,
+        quality_level=spec.features.quality_level,
+        min_distance=spec.features.min_distance,
+        block_size=spec.features.block_size, roi_mask=mask))
+    n_corners = int(cs.count)
+    check(n_corners >= 1, "at least one corner on the first frame")
+    # The Newton iterations that run are counted on this staged call.
+    track, lk_iterations = lk.lk_track_precomputed, []
+
+    def counted_track(*args, **kwargs):
+        fr = track(*args, **kwargs)
+        lk_iterations.append(fr.iterations)
+        return fr
+
+    lk.lk_track_precomputed = counted_track
+    (samples, _, _), flow_s = wall_s(
+        lambda: scan._flow_samples_clip(crops, mask, spec))
+    lk.lk_track_precomputed = track
+    check(len(lk_iterations) == rest.shape[0] - 1, "one LK call per frame")
+    _, trace_s = wall_s(lambda: scan.bpm_trace(
+        samples, FPS, coeffs, 10, cfg.measure)[0])
+
+    # The 120x160 fixture on the card against the CPU.  Float32 tracking
+    # amplifies rounding from frame to frame (sums run in another order on
+    # the card), so samples are held to the BPM they give, not bit for bit.
+    small_cfg = MonitorConfig(
+        motion_extraction_method="flow", calibration=CalibrationConfig(
+            buffer_length=64, pyramid_levels=6, skip_levels_at_top=2))
+    clip = breathing_clip(**FLOW_SMALL)
+    on_card = scan.process_clip(clip, FPS, small_cfg)
+    on_cpu = scan.process_clip(clip, FPS, small_cfg, device="cpu")
+    check(on_card.found and on_card.roi == on_cpu.roi,
+          f"120x160 flow ROI {on_card.roi} == {on_cpu.roi}")
+    check(on_card.error_frame is None and on_cpu.error_frame is None,
+          "120x160 flow: no tracking loss")
+    sa, sb = on_card.measure.final_state, on_cpu.measure.final_state
+    check(torch.equal(sa.pts_valid.cpu(), sb.pts_valid),
+          "120x160 flow: the same points survive on the card and the CPU")
+    ha, hb = on_card.measure.has_bpm.cpu(), on_cpu.measure.has_bpm
+    check(torch.equal(ha, hb), "120x160 flow: has_bpm equal")
+    gap = float((on_card.measure.bpm.cpu()[ha]
+                 - on_cpu.measure.bpm[hb]).abs().max())
+    check(gap <= 0.5, f"120x160 flow: BPM within 0.5 of the CPU's ({gap})")
+    sample_gaps = (on_card.measure.samples.cpu()
+                   - on_cpu.measure.samples).abs()
+    over = (sample_gaps > 1e-3).nonzero().flatten()
+
+    emit({"phase": "flow_640x480", "frames": list(frames.shape),
+          "roi": res.roi, "launches": launches, "corners": n_corners,
+          "tracked_at_end": tracked,
+          "lk_level_passes": len(lk_iterations) * (spec.lk.max_level + 1),
+          "lk_iterations": sum(lk_iterations), "has_bpm": n_has,
+          "bpm_tail_median": tail_median, "bpm_oracle_delta": oracle_delta,
+          "first_process_clip_s": first_s, "process_clip_s": warm_s,
+          "locate_s": locate_s, "corners_s": corners_s,
+          "precompute_and_lk_loop_s": flow_s - corners_s,
+          "bpm_trace_s": trace_s,
+          "small_120x160": {"roi": on_card.roi,
+                            "tracked_at_end": int(sa.pts_valid.sum()),
+                            "bpm_max_abs_vs_cpu": gap,
+                            "samples_max_abs_vs_cpu": float(
+                                sample_gaps.max()),
+                            "first_frame_over_1e-3_vs_cpu":
+                                int(over[0]) if len(over) else None,
+                            "samples_max_abs": float(np.abs(
+                                on_cpu.measure.samples.numpy()).max())}})
+    return launches
+
+
+def phase_flow_profile(frames):
+    """One profiler pass over a warm flow-mode process_clip: launches and
+    the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.pipeline import scan
+
+    cfg = MonitorConfig(motion_extraction_method="flow")
+    _, plain_s = wall_s(lambda: scan.process_clip(frames, FPS, cfg))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, profiled_s = wall_s(lambda: scan.process_clip(frames, FPS, cfg))
+    n_kernels = 0
+    device_us = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            n_kernels += 1
+            device_us += ev.time_range.elapsed_us()
+    check(device_us > 0, "the profiler saw device activity")
+    emit({"phase": "flow_profile", "process_clip_s": plain_s,
+          "profiled_process_clip_s": profiled_s,
+          "device_kernels_and_copies": n_kernels,
+          "device_busy_s": device_us / 1e6,
+          "device_idle_share_unprofiled": 1.0 - device_us / 1e6 / plain_s})
 
 
 def phase_1080p(dev):
     import torch
 
-    from respmon_tpu.config import CalibrationConfig
-    from respmon_tpu.io.synthetic import breathing_clip
+    from respmon_tpu_torch.config import CalibrationConfig
+    from respmon_tpu_torch.io.synthetic import breathing_clip
     from respmon_tpu_torch.pipeline import evm
 
     cfg = CalibrationConfig()
@@ -329,19 +674,16 @@ def phase_1080p(dev):
     frames = torch.from_numpy(quantize(clip)).to(dev)
     del clip
 
-    def bbox(r):
-        return [int(v) for v in torch.stack([r.x, r.y, r.w, r.h]).tolist()]
-
     res = evm.locate(frames, FPS, cfg)
     check(bool(res.found), "1080p locate found an ROI")
-    with plain_pyramid():
+    with pyramid_route():
         plain = evm.locate(frames, FPS, cfg)
-    check(bbox(res) == bbox(plain), "1080p ROI equals the plain path's")
+    check(_bbox(res) == _bbox(plain), "1080p ROI equals the plain path's")
     _, locate_s = wall_s(lambda: evm.locate(frames, FPS, cfg).x)
-    with plain_pyramid():
+    with pyramid_route():
         _, plain_s = wall_s(lambda: evm.locate(frames, FPS, cfg).x)
     emit({"phase": "locate_1080p", "frames": list(frames.shape),
-          "roi": bbox(res), "locate_s": locate_s, "plain_locate_s": plain_s,
+          "roi": _bbox(res), "locate_s": locate_s, "plain_locate_s": plain_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
 
@@ -358,13 +700,28 @@ def main() -> int:
     card = phase_device()
     phase_build()
     phase_widen(dev)
-    kernels = phase_kernels(dev)
+    kernels = phase_kernels(dev) + phase_kernels_k3(dev)
     phase_small_cross_check(dev)
-    launches = phase_slice(dev)
+    frames = slice_frames(dev)
+    roi, avg_launches = phase_slice(frames)
+    k3_launches = phase_k3_locate(frames, roi)
+    flow_launches = phase_flow_slice(frames, roi)
+    phase_flow_profile(frames)
+    del frames
     phase_1080p(dev)
 
+    # Each path was driven with every count at 0 just before it and read
+    # just after.  ``launches`` is the count on the kernel's own path: the
+    # flow slice for the stencil kernels, the K3 calibration for the band
+    # kernels.
     for k in kernels:
-        k["launches"] = launches[k["name"].removesuffix("_f32")]
+        key = k["name"].removesuffix("_f32")
+        k["launches_by_path"] = {"slice_640x480": avg_launches[key],
+                                 "flow_640x480": flow_launches[key],
+                                 "k3_locate_640x480": k3_launches[key]}
+        k["launches"] = (k3_launches if key.startswith("band")
+                         else flow_launches)[key]
+        check(k["launches"] > 0, f"{k['name']} launched on its path")
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

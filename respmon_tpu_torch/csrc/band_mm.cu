@@ -14,10 +14,14 @@
 // The products are computed here, by FFMA on CUDA cores, not by a library:
 // no tensor cores (a TF32 product loses ~1e-3 absolute, the bar is 1e-5).
 //
-// Bound: as the dense product it is, float32 operations. At (128,480,640)
-// with 9 levels the chain is ~42 GFLOP, while the matrices have at most 5
-// nonzeros a row, so the work the data needs is ~1% of that and the pyramid
-// itself is bound by device memory (csrc/pyramid.cu). The design is the
+// Bound: the bytes that must move (every operand read once, the output
+// written once): the matrices have at most 5 nonzeros a row, so the
+// operations the data needs are few and the function, like the pyramid of
+// csrc/pyramid.cu, is bound by device memory. The dense product computed
+// here does ~100 times those operations (~42 GFLOP for the chain at
+// (128,480,640) with 9 levels), which is what its time follows.
+//
+// The design is the
 // plain shared-memory tiling: a block computes a 64x64 tile of one frame's
 // output, walks the inner dimension in slabs of 16 staged through shared
 // memory, and each of its 256 threads keeps a 4x4 register tile, so every

@@ -29,8 +29,8 @@ the padded level image, fetched for all points with one advanced-index
 gather.  The Newton iterations run for the whole point set at once with
 masked convergence (no per-point control flow); the loop stops early once no
 point is active, which reads one flag from the device per iteration and is
-bit-identical to running all iterations.  ``COUNTS`` counts the iterations
-run.  Images are expected on the uint8 [0,255] value scale (the reference
+bit-identical to running all iterations.  ``FlowResult.iterations`` counts
+the iterations run.  Images are expected on the uint8 [0,255] value scale (the reference
 converts crops with float_to_uint8 before LK, base.py:364-371), which the
 minEig threshold depends on.
 """
@@ -44,19 +44,12 @@ import torch
 
 from respmon_tpu_torch.ops.pyramid import _reflect101_indices, _take, pyr_down
 
-# Newton iterations and levels run since ``reset_counts``; every iteration
-# costs one device-to-host read of the "any point still active" flag.
-COUNTS = {"iterations": 0, "levels": 0}
-
-
-def reset_counts() -> None:
-    for k in COUNTS:
-        COUNTS[k] = 0
-
-
 class FlowResult(NamedTuple):
     pts: torch.Tensor     # (N, 2) float32 tracked positions (x, y)
     status: torch.Tensor  # (N,) bool
+    # Newton iterations run over all levels; each cost one device-to-host
+    # read of the "any point still active" flag.
+    iterations: int = 0
 
 
 def _scharr_derivs(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -154,7 +147,8 @@ def _track_level(prev_stack: torch.Tensor, next_img: torch.Tensor, hw,
 
     ``prev_stack`` is the level's padded (3, Hp, Wp) (image, dx, dy) of the
     previous frame, ``next_img`` the padded (Hp, Wp) image of the next
-    frame, ``hw`` the unpadded level shape."""
+    frame, ``hw`` the unpadded level shape.  Returns (points, status, the
+    number of iterations run)."""
     h, w = hw
     half = (win - 1) * 0.5
     pad = win + 2
@@ -182,13 +176,13 @@ def _track_level(prev_stack: torch.Tensor, next_img: torch.Tensor, hw,
     prev_delta = torch.zeros((n, 2), dtype=dtype, device=pts.device)
     done = out_prev | bad_g
     lost = torch.zeros((n,), dtype=torch.bool, device=pts.device)
-    COUNTS["levels"] += 1
+    iterations = 0
     for j in range(max_iters):
         # The body freezes finished points, so stopping once none is
         # active is bit-identical to running all max_iters.
         if not bool((~(done | lost)).any()):
             break
-        COUNTS["iterations"] += 1
+        iterations += 1
         jbx, jby, jfx, jfy = _bases(pts, half)
         out_next = (jbx < -win) | (jbx >= w) | (jby < -win) | (jby >= h)
         jw = _window_slices1(next_img, pad, jby.clamp(-pad, h - 1),
@@ -221,7 +215,7 @@ def _track_level(prev_stack: torch.Tensor, next_img: torch.Tensor, hw,
     # Status drops only at level 0 (cv2 `if level == 0` convention).
     if level == 0:
         status = status & ~(out_prev | bad_g | lost)
-    return pts, status
+    return pts, status, iterations
 
 
 class LKFrameInputs(NamedTuple):
@@ -238,15 +232,13 @@ class LKFrameInputs(NamedTuple):
     images: Tuple[torch.Tensor, ...] = ()
 
 
-def level_geometry(h: int, w: int, win: int, max_level: int):
-    """Static per-level (shape, wprime) for images of (h, w)."""
+def level_geometry(h: int, w: int, max_level: int):
+    """Static per-level shapes of the pyramid of (h, w) images."""
     shapes = [(h, w)]
     for _ in range(max_level):
         hh, ww = shapes[-1]
         shapes.append(((hh + 1) // 2, (ww + 1) // 2))
-    # width of a level's grid of window bases over its padded image
-    wprimes = [ww + 2 * (win + 2) - win for _, ww in shapes]
-    return shapes, wprimes
+    return shapes
 
 
 def precompute_frame_inputs(img: torch.Tensor, win: int = 15,
@@ -287,15 +279,18 @@ def lk_track_precomputed(prev: LKFrameInputs, nxt: LKFrameInputs,
     pts = pts.to(dtype)
     next_pts = pts / (2.0 ** (max_level + 1))
     status = valid
+    iterations = 0
     for level in range(max_level, -1, -1):
         prev_pts = pts / (2.0 ** level)
         next_pts = next_pts * 2.0
-        next_pts, status = _track_level(
+        next_pts, status, ran = _track_level(
             prev.stacks[level], nxt.images[level], shapes[level], prev_pts,
             next_pts, status, level, win, max_iters, eps2, min_eig_thresh,
             dtype)
+        iterations += ran
 
-    return FlowResult(pts=next_pts.to(torch.float32), status=status & valid)
+    return FlowResult(pts=next_pts.to(torch.float32), status=status & valid,
+                      iterations=iterations)
 
 
 def calc_optical_flow_pyr_lk(prev_img: torch.Tensor, next_img: torch.Tensor,
@@ -310,7 +305,7 @@ def calc_optical_flow_pyr_lk(prev_img: torch.Tensor, next_img: torch.Tensor,
     per-frame wrapper; the whole-clip path uses the precomputed-inputs
     variant.)"""
     h, w = prev_img.shape
-    shapes, _ = level_geometry(h, w, win, max_level)
+    shapes = level_geometry(h, w, max_level)
     prev = precompute_frame_inputs(prev_img, win, max_level)
     nxt = precompute_frame_inputs(next_img, win, max_level,
                                   with_stacks=False, with_images=True)

@@ -172,8 +172,7 @@ def band_right(b: torch.Tensor, a: torch.Tensor,
     or ``minuend[t] - b[t] @ a`` (the ``band_right_f32`` kernel)."""
     tensors = (b, a) if minuend is None else (b, a, minuend)
     if all(x.device.type == "cpu" for x in tensors):
-        prod = torch.matmul(b, a)
-        return prod if minuend is None else minuend - prod
+        return _matmul_right(b, a, minuend)
     _check(b, 3, "band_right")
     _check(a, 2, "band_right")
     (t_len, m, k), (ka, n) = b.shape, a.shape

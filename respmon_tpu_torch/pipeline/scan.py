@@ -15,7 +15,6 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from respmon_tpu_torch import device as device_mod
 from respmon_tpu_torch.config import MonitorConfig
 from respmon_tpu_torch.ops import corners, filters, lk
 from respmon_tpu_torch.ops.dtype import ingest_frames
@@ -91,7 +90,7 @@ def _flow_samples_clip(crops: torch.Tensor, mask: torch.Tensor,
         block_size=spec.features.block_size, roi_mask=mask)
     first_error = cs.count < 1   # base.py:367-368
 
-    shapes, _ = lk.level_geometry(spec.crop_h, spec.crop_w, win, max_level)
+    shapes = lk.level_geometry(spec.crop_h, spec.crop_w, max_level)
     pts, valid = cs.pts, cs.valid
     motion_xy = torch.zeros((n_ring, 2), dtype=dtype, device=dev)
     motion_count = torch.zeros((), dtype=torch.int32, device=dev)
@@ -194,13 +193,11 @@ def process_clip(frames, fps: float, cfg: MonitorConfig,
 
     ``frames`` is a (T, H, W) numpy array or tensor, float in [0, 1] or
     uint8.  The run is on the card unless ``device`` says otherwise
-    (``device.resolve``: without a CUDA device ``device=None`` raises, and
-    a CPU run passes ``device="cpu"``)."""
+    (``ops/dtype.ingest_frames``: without a CUDA device ``device=None``
+    raises, and a CPU run passes ``device="cpu"``)."""
     cal_len = cfg.calibration.buffer_length
     if frames.shape[0] <= cal_len + 2:
         raise ValueError("clip shorter than calibration")
-    device = device_mod.resolve(
-        device, frames if isinstance(frames, torch.Tensor) else None)
     cal = ingest_frames(frames[1:cal_len + 1], dtype, device)
 
     loc = evm.locate(cal, float(fps), cfg.calibration)
@@ -218,7 +215,7 @@ def process_clip(frames, fps: float, cfg: MonitorConfig,
         cfg.calibration.freq_max * 0.5, float(fps), cfg.measure.filter_order)
     min_dist = max(int(np.floor(fps / cfg.calibration.freq_max)), 1)
 
-    rest = ingest_frames(frames[cal_len + 2:], dtype, device)
+    rest = ingest_frames(frames[cal_len + 2:], dtype, cal.device)
     res = measure_clip(rest, (x, y, w, h), spec, coeffs, min_dist,
                        cfg.measure, estimate_every_frame=estimate_every_frame)
 
@@ -250,8 +247,6 @@ def process_clip_auto(frames, fps: float, cfg: MonitorConfig,
     cycle (reference base.py:496-533): after a reported ``error_frame`` the
     next episode starts at loss + 1 + round(error_reset_delay * fps);
     found=False retries on the next ``buffer_length`` frames."""
-    device = device_mod.resolve(
-        device, frames if isinstance(frames, torch.Tensor) else None)
     cal_len = cfg.calibration.buffer_length
     delay_frames = int(round(error_reset_delay * fps))
     episodes = []

