@@ -45,8 +45,11 @@ def check(cond, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, repeats: int = REPEATS) -> float:
-    """Median device time of ``fn`` in ms (CUDA events, after warm-up)."""
+def cuda_ms(fn, repeats: int = REPEATS, calls: int = 1) -> float:
+    """Median device time of one ``fn`` in ms (CUDA events, after warm-up).
+    With ``calls`` > 1 each reading spans that many calls in a row and is
+    divided by it, so the host's time to issue a call (tens of
+    microseconds) does not count against a kernel as short as that."""
     import torch
 
     for _ in range(3):
@@ -56,10 +59,11 @@ def cuda_ms(fn, repeats: int = REPEATS) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -233,6 +237,101 @@ def phase_kernels(dev):
 
 
 K3_TOL = 1e-5   # summation order differs from torch.matmul's and from K1's
+BAND_CALLS = 10  # calls in a row per timing of a band kernel, see cuda_ms
+
+
+def band_parity_cases(dev):
+    """(name, product, operands) of the band kernels' corner cases: how the
+    skipping follows the matrix's data, and the operands a 16-byte copy
+    cannot take.  Operands are (matrix or operator, video, minuend)."""
+    import numpy as np
+    import torch
+
+    from respmon_tpu_torch.ops import pyramid_mm as pm
+
+    rng = np.random.default_rng(2)
+
+    def rand(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def video(*shape, offset=0):
+        # offset > 0: the frames start that many floats into an allocation,
+        # so the first frame's base is not 16-byte aligned.
+        n = int(np.prod(shape))
+        flat = torch.from_numpy(rand(n + offset)).to(dev)
+        return flat[offset:].view(shape)
+
+    def band(m, k):
+        # A band of random width around the diagonal of an (m, k) matrix.
+        i, j = np.mgrid[:m, :k]
+        return np.where(np.abs(j - i * k / m) <= 4, rand(m, k), 0.0).astype(
+            np.float32)
+
+    cases = []
+    for side in ("left", "right"):
+        def operands(matrix, t_len, other, offset=0, minuend=False,
+                     ranges=True, side=side):
+            # matrix is (m, k) for the left product; its transpose's shape
+            # (k, n) multiplies from the right.
+            a = matrix if side == "left" else np.ascontiguousarray(matrix.T)
+            op = (pm.band_operator(a, side, dev) if ranges
+                  else torch.from_numpy(a).to(dev))
+            m, k = matrix.shape
+            if side == "left":
+                b = video(t_len, k, other, offset=offset)
+                sub = video(t_len, m, other) if minuend else None
+            else:
+                b = video(t_len, other, k, offset=offset)
+                sub = video(t_len, other, m) if minuend else None
+            return op, b, sub
+
+        dense = rand(150, 200)
+        cases.append((f"{side}: dense matrix, no ranges", side,
+                      operands(dense, 3, 136, ranges=False)))
+        cases.append((f"{side}: dense matrix, ranges from its values", side,
+                      operands(dense, 3, 136)))
+        holed = band(200, 300)
+        holed[64:128] = 0.0
+        cases.append((f"{side}: an all-zero tile", side,
+                      operands(holed, 2, 72)))
+        cases.append((f"{side}: band, aligned widths, frames 4 bytes off",
+                      side, operands(band(96, 192), 2, 64, offset=1)))
+        for t_len, k, other in [(2, 5, 7), (3, 9, 15)]:
+            cases.append((f"{side}: ({t_len},{k},{other}), widths not "
+                          f"multiples of 4", side,
+                          operands(band((k + 1) // 2, k), t_len, other,
+                                   offset=3)))
+    cases.append(("right: minuend with ranges", "right",
+                  operands(band(160, 320), 3, 100, minuend=True)))
+    cases.append(("right: minuend, odd widths", "right",
+                  operands(band(7, 13), 2, 9, minuend=True)))
+    return cases
+
+
+def phase_band_parity(dev):
+    """Each corner case of the band kernels against torch.matmul, to rtol
+    1e-5 of the result's largest magnitude."""
+    import torch
+
+    from respmon_tpu_torch.ops import pyramid_mm as pm
+
+    for name, side, (a, b, minuend) in band_parity_cases(dev):
+        matrix = a.matrix if isinstance(a, pm.BandOperator) else a
+        if side == "left":
+            got, want = pm.band_left(a, b), torch.matmul(matrix, b)
+        else:
+            got = pm.band_right(b, a, minuend)
+            want = pm._matmul_right(b, matrix, minuend)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(want.abs().max()))
+        err = float((got - want).abs().max())
+        ranges = (a.ranges.tolist() if isinstance(a, pm.BandOperator)
+                  else None)
+        emit({"phase": "kernel_parity", "op": f"band_{side}", "case": name,
+              "shapes": [list(matrix.shape), list(b.shape)],
+              "ranges": ranges, "max_abs_err": err, "scale": scale})
+        check(err <= K3_TOL * scale, f"band_{side}, {name}: within "
+              f"{K3_TOL} x {scale} of torch.matmul (got {err})")
 
 
 def phase_kernels_k3(dev):
@@ -242,6 +341,7 @@ def phase_kernels_k3(dev):
 
     from respmon_tpu_torch.ops import pyramid_cuda as pc, pyramid_mm as pm
 
+    phase_band_parity(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     for shape, levels, skip in [((128, 480, 640), 9, 4),
                                 ((8, 1080, 1920), 9, 4),
@@ -269,9 +369,10 @@ def phase_kernels_k3(dev):
         del v, got
 
     # The two kernels at the first (largest) products of the 640x480 chain,
-    # and the minuend form at its first kept level.  The matrices are
-    # sparse (<= 5 nonzeros a row): the bound counts the operations their
-    # nonzeros need, not those of the dense product.
+    # called as the chain calls them (with the operators' ranges), and the
+    # minuend form at its first kept level.  The matrices are sparse (<= 5
+    # nonzeros a row): the bound counts the operations their nonzeros
+    # need, not those of the dense product.
     v = torch.rand((128, 480, 640), generator=gen, device=dev)
     dh, dw_t, uh, uw_t = pm._operators(480, 640, 9, 4, v.device)
     left_a, left_b = dh[0], v
@@ -279,7 +380,7 @@ def phase_kernels_k3(dev):
     g4 = pc.gauss_level(v, 4)
     up_h = pm.band_left(uh[0], pc.pyr_down(g4))
     err_minuend = max_abs([pm.band_right(up_h, uw_t[0], g4)],
-                          [g4 - torch.matmul(up_h, uw_t[0])])
+                          [g4 - torch.matmul(up_h, uw_t[0].matrix)])
     check(err_minuend <= K3_TOL, "band_right with a minuend")
 
     def product_bound(a, t_len, m, k, n, rows_per_nonzero):
@@ -292,27 +393,31 @@ def phase_kernels_k3(dev):
         return bound(n_bytes, needed)
 
     t_len = v.shape[0]
-    m, k = left_a.shape
+    m, k = left_a.matrix.shape
     n = left_b.shape[2]
-    n2 = right_a.shape[1]
+    n2 = right_a.matrix.shape[1]
     kernels = [
         {"name": "band_left_f32", "route": "cuda", "source": BAND_CU,
          "replaces": f"{PALLAS}:216",
-         "shape": [list(left_a.shape), list(left_b.shape)],
+         "shape": [list(left_a.matrix.shape), list(left_b.shape)],
          "max_abs_err": max_abs([pm.band_left(left_a, left_b)],
-                                [torch.matmul(left_a, left_b)]),
-         "ms": cuda_ms(lambda: pm.band_left(left_a, left_b)),
-         "plain_ms": cuda_ms(lambda: torch.matmul(left_a, left_b)),
-         **product_bound(left_a, t_len, m, k, n, n)},
+                                [torch.matmul(left_a.matrix, left_b)]),
+         "ms": cuda_ms(lambda: pm.band_left(left_a, left_b),
+                       calls=BAND_CALLS),
+         "plain_ms": cuda_ms(lambda: torch.matmul(left_a.matrix, left_b),
+                             calls=BAND_CALLS),
+         **product_bound(left_a.matrix, t_len, m, k, n, n)},
         {"name": "band_right_f32", "route": "cuda", "source": BAND_CU,
          "replaces": f"{PALLAS}:216",
-         "shape": [list(right_b.shape), list(right_a.shape)],
+         "shape": [list(right_b.shape), list(right_a.matrix.shape)],
          "max_abs_err": max(err_minuend, max_abs(
              [pm.band_right(right_b, right_a)],
-             [torch.matmul(right_b, right_a)])),
-         "ms": cuda_ms(lambda: pm.band_right(right_b, right_a)),
-         "plain_ms": cuda_ms(lambda: torch.matmul(right_b, right_a)),
-         **product_bound(right_a, t_len, m, n, n2, m)},
+             [torch.matmul(right_b, right_a.matrix)])),
+         "ms": cuda_ms(lambda: pm.band_right(right_b, right_a),
+                       calls=BAND_CALLS),
+         "plain_ms": cuda_ms(lambda: torch.matmul(right_b, right_a.matrix),
+                             calls=BAND_CALLS),
+         **product_bound(right_a.matrix, t_len, m, n, n2, m)},
     ]
     for kern in kernels:
         # torch.matmul is both the plain version and the one library call

@@ -47,6 +47,7 @@ __global__ void __launch_bounds__(kThreads)
 band_product_kernel(const float* __restrict__ X, long long stride_x,
                     const float* __restrict__ Y, long long stride_y,
                     const float* __restrict__ minuend, float* __restrict__ C,
+                    const int2* __restrict__ ranges, bool ranges_by_row,
                     int T, int m, int k, int n) {
   // The X slab is stored transposed (+1 padding against bank conflicts) so
   // that the inner loop reads rows of both slabs.
@@ -59,6 +60,14 @@ band_product_kernel(const float* __restrict__ X, long long stride_x,
   const int row0 = blockIdx.y * kTile;
   const int col0 = blockIdx.x * kTile;
   const long long plane = (long long)m * n;
+  // The slabs outside this tile's range hold only zeros of the shared
+  // matrix: they are not walked.
+  int k_lo = 0, k_hi = k;
+  if (ranges != nullptr) {
+    const int2 r = ranges[ranges_by_row ? blockIdx.y : blockIdx.x];
+    k_lo = r.x;
+    k_hi = r.y;
+  }
 
   for (int t = blockIdx.z; t < T; t += gridDim.z) {
     const float* x = X + t * stride_x;
@@ -69,20 +78,20 @@ band_product_kernel(const float* __restrict__ X, long long stride_x,
 #pragma unroll
       for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
 
-    for (int k0 = 0; k0 < k; k0 += kSlab) {
+    for (int k0 = k_lo; k0 < k_hi; k0 += kSlab) {
 #pragma unroll
       for (int i = 0; i < kTile * kSlab / kThreads; ++i) {
         const int e = tid + i * kThreads;
         const int r = e / kSlab, c = e % kSlab;
         const int gr = row0 + r, gc = k0 + c;
-        xs[c][r] = (gr < m && gc < k) ? x[(long long)gr * k + gc] : 0.0f;
+        xs[c][r] = (gr < m && gc < k_hi) ? x[(long long)gr * k + gc] : 0.0f;
       }
 #pragma unroll
       for (int i = 0; i < kSlab * kTile / kThreads; ++i) {
         const int e = tid + i * kThreads;
         const int r = e / kTile, c = e % kTile;
         const int gr = k0 + r, gc = col0 + c;
-        ys[r][c] = (gr < k && gc < n) ? y[(long long)gr * n + gc] : 0.0f;
+        ys[r][c] = (gr < k_hi && gc < n) ? y[(long long)gr * n + gc] : 0.0f;
       }
       __syncthreads();
 #pragma unroll
@@ -117,12 +126,17 @@ band_product_kernel(const float* __restrict__ X, long long stride_x,
 }
 
 int launch(const float* X, long long stride_x, const float* Y,
-           long long stride_y, const float* minuend, float* C, int T, int m,
+           long long stride_y, const float* minuend, float* C,
+           const int* ranges, int n_ranges, bool ranges_by_row, int T, int m,
            int k, int n, void* stream) {
+  if (ranges != nullptr &&
+      n_ranges != ((ranges_by_row ? m : n) + kTile - 1) / kTile)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile,
                   T < kMaxGridZ ? T : kMaxGridZ);
   band_product_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      X, stride_x, Y, stride_y, minuend, C, T, m, k, n);
+      X, stride_x, Y, stride_y, minuend, C,
+      reinterpret_cast<const int2*>(ranges), ranges_by_row, T, m, k, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -132,15 +146,21 @@ int launch(const float* X, long long stride_x, const float* Y,
 // launch; the caller allocates every buffer and passes its current stream.
 
 // C[t] = A * B[t]: A is (m,k), B is (T,k,n), C is (T,m,n).
+// ranges (or null: walk everything) holds one [k_lo, k_hi) pair per kTile rows
+// of A; a_exact is not used yet.
 extern "C" int band_left_f32(const float* A, const float* B, float* C, int T,
-                             int m, int k, int n, void* stream) {
-  return launch(A, 0, B, (long long)k * n, nullptr, C, T, m, k, n, stream);
+                             int m, int k, int n, const int* ranges,
+                             int n_ranges, int a_exact, void* stream) {
+  return launch(A, 0, B, (long long)k * n, nullptr, C, ranges, n_ranges, true,
+                T, m, k, n, stream);
 }
 
 // C[t] = B[t] * A, or minuend[t] - B[t] * A when minuend is not null:
 // B is (T,m,k), A is (k,n), minuend and C are (T,m,n).
 extern "C" int band_right_f32(const float* B, const float* A,
                               const float* minuend, float* C, int T, int m,
-                              int k, int n, void* stream) {
-  return launch(B, (long long)m * k, A, 0, minuend, C, T, m, k, n, stream);
+                              int k, int n, const int* ranges, int n_ranges,
+                              int a_exact, void* stream) {
+  return launch(B, (long long)m * k, A, 0, minuend, C, ranges, n_ranges,
+                false, T, m, k, n, stream);
 }

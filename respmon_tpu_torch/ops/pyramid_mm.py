@@ -17,19 +17,24 @@ kernels of ``csrc/band_mm.cu``: ``band_left`` (``A @ B[t]``) and
 same pass) are the wrappers.  For CPU tensors they are ``torch.matmul``;
 for CUDA tensors they launch the kernel or raise.  ``LAUNCHES`` counts
 kernel launches per kernel.  ``laplacian_band_levels_mm_ref`` is the plain
-version: the same chain through ``torch.matmul`` in full float32 (the
-package keeps TF32 off), on any device.
+version: the same chain through dense ``torch.matmul`` in full float32
+(the package keeps TF32 off), on any device.
 
-The matrices have at most 5 nonzeros a row, so the dense product does
-about a hundred times the work the pyramid needs; it is kept as the
-counterpart of the TPU kernel and is slower than ``ops/pyramid_cuda``.
+The matrices have at most 5 nonzeros a row.  A ``BandOperator`` carries,
+beside the matrix, what the host read from its values once
+(``band_operator``): for every ``BAND_TILE`` rows (left product) or
+columns (right product) the range of inner indices outside which the
+tile is all zero (``slab_ranges``), and whether every entry is exact in
+TF32 (``is_tf32_exact``).  The kernel walks only a tile's range, so a
+banded matrix costs the work its band needs and a dense one the dense
+product; a bare tensor in place of an operator walks everything.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,6 +42,12 @@ import torch
 from respmon_tpu_torch.ops.pyramid import _K5, pyramid_shapes
 
 LAUNCHES = {"band_left": 0, "band_right": 0}
+
+# Rows (left product) or columns (right product) of the shared matrix that
+# one thread block of csrc/band_mm.cu owns, and the multiple the ends of a
+# tile's range are rounded to (kBandTile and kRangeAlign there).
+BAND_TILE = 64
+RANGE_ALIGN = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -89,25 +100,78 @@ def _np_up_matrix(n: int, dst: int) -> np.ndarray:
     return U
 
 
+def slab_ranges(matrix: np.ndarray, side: str, tile: int = BAND_TILE,
+                align: int = RANGE_ALIGN) -> np.ndarray:
+    """For every ``tile`` rows (``side="left"``: the matrix is (m, k) and
+    multiplies from the left) or columns (``"right"``: (k, n)) of a shared
+    matrix, the range ``[k_lo, k_hi)`` of inner indices outside which the
+    tile is all zero, as an int32 array (tiles, 2).  The ends are rounded
+    outwards to multiples of ``align`` (``k_hi`` at most to ``k``), so no
+    nonzero is cut; an all-zero tile gets the empty range (0, 0) and a
+    dense matrix (0, k).  Read from the matrix's values, whatever made it."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side is 'left' or 'right', got {side!r}")
+    if matrix.ndim != 2:
+        raise ValueError(f"expected a matrix, got {matrix.shape}")
+    by_tile = matrix != 0 if side == "left" else (matrix != 0).T
+    k = by_tile.shape[1]
+    n_tiles = -(-by_tile.shape[0] // tile)
+    out = np.zeros((n_tiles, 2), np.int32)
+    for i in range(n_tiles):
+        used = np.flatnonzero(by_tile[i * tile:(i + 1) * tile].any(axis=0))
+        if len(used):
+            out[i] = (used[0] // align * align,
+                      min(-(-(used[-1] + 1) // align) * align, k))
+    return out
+
+
+def is_tf32_exact(matrix: np.ndarray) -> bool:
+    """True if every float32 entry is a TF32 number (the low 13 bits of its
+    significand are zero): such a matrix goes through the tensor cores
+    unrounded."""
+    bits = np.ascontiguousarray(matrix, np.float32).view(np.uint32)
+    return not bool((bits & 0x1FFF).any())
+
+
+class BandOperator(NamedTuple):
+    """A shared matrix on its device, with what the host read from its
+    values: the slab ranges of its tiles (int32 (tiles, 2), on the same
+    device) and whether its entries are exact in TF32."""
+    matrix: torch.Tensor
+    side: str
+    ranges: torch.Tensor
+    tf32_exact: bool
+
+
+def band_operator(matrix: np.ndarray, side: str,
+                  device: torch.device) -> BandOperator:
+    """Upload a host matrix for ``band_left`` (``side="left"``) or
+    ``band_right`` (``"right"``) with its ranges and its TF32 verdict."""
+    matrix = np.ascontiguousarray(matrix, np.float32)
+    return BandOperator(torch.from_numpy(matrix).to(device), side,
+                        torch.from_numpy(slab_ranges(matrix, side)).to(device),
+                        is_tf32_exact(matrix))
+
+
 @functools.lru_cache(maxsize=8)
 def _operators(h: int, w: int, levels: int, skip_top: int,
                device: torch.device):
-    """(dh, dw_t, uh, uw_t) tuples of device matrices for one geometry; the
-    W matrices are stored transposed, ready to multiply from the right.
+    """(dh, dw_t, uh, uw_t) tuples of ``BandOperator``s for one geometry;
+    the W matrices are stored transposed, ready to multiply from the right.
     Cached: the same few geometries come back with every calibration."""
     shapes = pyramid_shapes(h, w, levels)
     kept = range(skip_top, levels - 1)
 
-    def dev(m):
-        return torch.from_numpy(np.ascontiguousarray(m)).to(device)
-
-    dh = tuple(dev(_np_down_matrix(shapes[i][0])) for i in range(levels - 1))
-    dw_t = tuple(dev(_np_down_matrix(shapes[i][1]).T)
-                 for i in range(levels - 1))
-    uh = tuple(dev(_np_up_matrix(shapes[lvl + 1][0], shapes[lvl][0]))
+    dh = tuple(band_operator(_np_down_matrix(shapes[i][0]), "left", device)
+               for i in range(levels - 1))
+    dw_t = tuple(band_operator(_np_down_matrix(shapes[i][1]).T, "right",
+                               device) for i in range(levels - 1))
+    uh = tuple(band_operator(_np_up_matrix(shapes[lvl + 1][0],
+                                           shapes[lvl][0]), "left", device)
                for lvl in kept)
-    uw_t = tuple(dev(_np_up_matrix(shapes[lvl + 1][1], shapes[lvl][1]).T)
-                 for lvl in kept)
+    uw_t = tuple(band_operator(_np_up_matrix(shapes[lvl + 1][1],
+                                             shapes[lvl][1]).T, "right",
+                               device) for lvl in kept)
     return dh, dw_t, uh, uw_t
 
 
@@ -116,9 +180,11 @@ def _lib():
 
     lib = _build.load("band_mm")
     if not getattr(lib, "_respmon_bound", False):
-        lib.band_left_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+        lib.band_left_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
+                                      _P]
         lib.band_left_f32.restype = _I
-        lib.band_right_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.band_right_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
+                                       _I, _P]
         lib.band_right_f32.restype = _I
         lib._respmon_bound = True
     return lib
@@ -142,11 +208,36 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
 
 
-def band_left(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _unpack(a: Union[torch.Tensor, BandOperator], side: str, name: str):
+    """(matrix, ranges pointer or None, number of ranges, exact flag) of a
+    bare matrix (no ranges: the kernel walks the whole inner dimension and
+    takes the matrix as inexact) or of a ``BandOperator`` for ``side``."""
+    if not isinstance(a, BandOperator):
+        return a, None, 0, 0
+    if a.side != side:
+        raise ValueError(f"{name}: operator was made for the {a.side} "
+                         f"product")
+    tiles = -(-a.matrix.shape[0 if side == "left" else 1] // BAND_TILE)
+    if (a.ranges.device != a.matrix.device or a.ranges.dtype != torch.int32
+            or tuple(a.ranges.shape) != (tiles, 2)
+            or not a.ranges.is_contiguous()):
+        raise ValueError(f"{name}: ranges are not int32 ({tiles}, 2) beside "
+                         f"the matrix")
+    return a.matrix, a.ranges.data_ptr(), tiles, int(a.tf32_exact)
+
+
+def band_left(a: Union[torch.Tensor, BandOperator],
+              b: torch.Tensor) -> torch.Tensor:
     """``C[t] = a @ b[t]`` for a (m, k) matrix and a (T, k, n) f32 video
-    (the ``band_left_f32`` kernel)."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return torch.matmul(a, b)
+    (the ``band_left_f32`` kernel).  ``a`` is a ``BandOperator`` (the
+    kernel walks only each row tile's range) or a bare tensor (it walks
+    everything).  Terms of a skipped range are left out, not multiplied by
+    zero, so ``b`` is expected finite (frames are): a dense product would
+    turn an Inf or NaN there into NaN."""
+    matrix = a.matrix if isinstance(a, BandOperator) else a
+    if matrix.device.type == "cpu" and b.device.type == "cpu":
+        return torch.matmul(matrix, b)
+    a, ranges, n_ranges, exact = _unpack(a, "left", "band_left")
     _check(a, 2, "band_left")
     _check(b, 3, "band_left")
     if a.device != b.device:
@@ -160,19 +251,24 @@ def band_left(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     stream = torch.cuda.current_stream(b.device).cuda_stream
     _raise_on(_lib().band_left_f32(a.data_ptr(), b.data_ptr(),
-                                   out.data_ptr(), t_len, m, k, n, stream),
+                                   out.data_ptr(), t_len, m, k, n, ranges,
+                                   n_ranges, exact, stream),
               "band_left_f32")
     LAUNCHES["band_left"] += 1
     return out
 
 
-def band_right(b: torch.Tensor, a: torch.Tensor,
+def band_right(b: torch.Tensor, a: Union[torch.Tensor, BandOperator],
                minuend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``C[t] = b[t] @ a`` for a (T, m, k) f32 video and a (k, n) matrix,
-    or ``minuend[t] - b[t] @ a`` (the ``band_right_f32`` kernel)."""
-    tensors = (b, a) if minuend is None else (b, a, minuend)
+    or ``minuend[t] - b[t] @ a`` (the ``band_right_f32`` kernel).  ``a`` is
+    a ``BandOperator`` (the kernel walks only each column tile's range) or
+    a bare tensor; ``b`` is expected finite, as for ``band_left``."""
+    matrix = a.matrix if isinstance(a, BandOperator) else a
+    tensors = (b, matrix) if minuend is None else (b, matrix, minuend)
     if all(x.device.type == "cpu" for x in tensors):
-        return _matmul_right(b, a, minuend)
+        return _matmul_right(b, matrix, minuend)
+    a, ranges, n_ranges, exact = _unpack(a, "right", "band_right")
     _check(b, 3, "band_right")
     _check(a, 2, "band_right")
     (t_len, m, k), (ka, n) = b.shape, a.shape
@@ -193,7 +289,7 @@ def band_right(b: torch.Tensor, a: torch.Tensor,
     _raise_on(_lib().band_right_f32(
         b.data_ptr(), a.data_ptr(),
         None if minuend is None else minuend.data_ptr(), out.data_ptr(),
-        t_len, m, k, n, stream), "band_right_f32")
+        t_len, m, k, n, ranges, n_ranges, exact, stream), "band_right_f32")
     LAUNCHES["band_right"] += 1
     return out
 
@@ -228,5 +324,7 @@ def _matmul_right(b, a, minuend):
 def laplacian_band_levels_mm_ref(vid: torch.Tensor, levels: int,
                                  skip_top: int) -> Tuple[torch.Tensor, ...]:
     """Plain version of ``laplacian_band_levels_mm`` on any device: the
-    same chain on the same matrices through ``torch.matmul``."""
-    return _chain(vid, levels, skip_top, torch.matmul, _matmul_right)
+    same chain on the same matrices through dense ``torch.matmul``."""
+    return _chain(vid, levels, skip_top,
+                  lambda op, b: torch.matmul(op.matrix, b),
+                  lambda b, op, minuend: _matmul_right(b, op.matrix, minuend))

@@ -103,11 +103,21 @@ def test_operator_cache_is_keyed_by_geometry():
     other = pyramid_mm._operators(20, 30, 4, 0, dev)
     assert other is not first
     dh, dw_t, uh, uw_t = other
-    assert [tuple(m.shape) for m in dh] == [(10, 20), (5, 10), (3, 5)]
-    assert [tuple(m.shape) for m in dw_t] == [(30, 15), (15, 8), (8, 4)]
-    assert [tuple(m.shape) for m in uh] == [(20, 10), (10, 5), (5, 3)]
-    assert [tuple(m.shape) for m in uw_t] == [(15, 30), (8, 15), (4, 8)]
+    assert [tuple(m.matrix.shape) for m in dh] == [(10, 20), (5, 10), (3, 5)]
+    assert [tuple(m.matrix.shape) for m in dw_t] == [(30, 15), (15, 8),
+                                                     (8, 4)]
+    assert [tuple(m.matrix.shape) for m in uh] == [(20, 10), (10, 5), (5, 3)]
+    assert [tuple(m.matrix.shape) for m in uw_t] == [(15, 30), (8, 15),
+                                                     (4, 8)]
     assert len(first[2]) == 2
+    # Each matrix travels with what the host read from its values.
+    for ops, side in ((dh, "left"), (dw_t, "right"), (uh, "left"),
+                      (uw_t, "right")):
+        for op in ops:
+            assert op.side == side and op.tf32_exact
+            assert op.ranges.dtype == torch.int32
+            assert op.ranges.tolist() == pyramid_mm.slab_ranges(
+                op.matrix.numpy(), side).tolist()
 
 
 def test_band_levels_mm_rejects_what_it_does_not_take():
