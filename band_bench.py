@@ -58,6 +58,7 @@ def main() -> int:
     from respmon_tpu_torch.ops import _build, pyramid_cuda as pc
     from respmon_tpu_torch.ops import pyramid_mm as pm
 
+    pc._lib()   # the stencil kernels always come from the package
     if args.csrc is not None:
         _build.CSRC = args.csrc.resolve()
     dev = torch.device("cuda", 0)

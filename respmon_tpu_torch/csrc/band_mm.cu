@@ -11,132 +11,254 @@
 //   band_left_f32 :  C[t] = A * B[t]                  A (m,k), B (T,k,n)
 //   band_right_f32:  C[t] = B[t] * A  or  M[t] - B[t] * A
 //                                                     B (T,m,k), A (k,n)
-// The products are computed here, by FFMA on CUDA cores, not by a library:
-// no tensor cores (a TF32 product loses ~1e-3 absolute, the bar is 1e-5).
+// The products are computed here, by FFMA on CUDA cores, not by a library.
 //
 // Bound: the bytes that must move (every operand read once, the output
-// written once): the matrices have at most 5 nonzeros a row, so the
-// operations the data needs are few and the function, like the pyramid of
-// csrc/pyramid.cu, is bound by device memory. The dense product computed
-// here does ~100 times those operations (~42 GFLOP for the chain at
-// (128,480,640) with 9 levels), which is what its time follows.
+// written once). The matrices have at most 5 nonzeros a row, so the
+// operations the data needs are few.
 //
-// The design is the
-// plain shared-memory tiling: a block computes a 64x64 tile of one frame's
-// output, walks the inner dimension in slabs of 16 staged through shared
-// memory, and each of its 256 threads keeps a 4x4 register tile, so every
-// value fetched from shared memory feeds 4 FFMAs. The shared matrix is read
-// again by every frame's blocks and stays in L2. Ragged edges are loaded as
-// zeros and masked at the store. Exploiting the band (only the slabs that
-// hold a row's nonzeros) or moving to wgmma with a split-float32 scheme is
-// later work.
+// Design. A block owns one output tile of one frame: 64 rows of A by 128
+// columns (left) or 128 rows by 64 columns of A (right), so the side along
+// which A is banded is kBandTile wide and the block reads its own
+// [k_lo, k_hi) from the ranges the host computed from A's values. It walks
+// only that range, in slabs of 16 staged through a ring of three
+// shared-memory buffers that cp.async fills (16 bytes a thread, or 4 bytes
+// where a width or a pointer does not allow 16), so the next two slabs load
+// while one is multiplied. Loads outside the operands or the range are
+// zero-filled by the copy, stores are masked.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 64;      // output tile is kTile x kTile
+constexpr int kBandTile = 64;  // tile extent along A's banded side
 constexpr int kSlab = 16;      // inner-dimension slab
-constexpr int kMicro = 4;      // each thread owns kMicro x kMicro outputs
-constexpr int kThreads = (kTile / kMicro) * (kTile / kMicro);  // 256
+constexpr int kStages = 3;     // slabs in the ring
+constexpr int kThreads = 256;
+constexpr int kXPad = 4;       // row paddings of the two slabs in shared memory
+constexpr int kYPad = 8;
 constexpr int kMaxGridZ = 65535;
 
+// Asynchronous copies global -> shared of 16 or 4 bytes; with take == false
+// nothing is read and the destination is filled with zeros.
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool take) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int bytes = take ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool take) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int bytes = take ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's copy groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void wait_but() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // C[t] = X[t] * Y[t] (or M[t] - X[t] * Y[t]); X is (m,k), Y is (k,n), all
-// row-major. A stride of 0 shares one matrix between all frames.
-__global__ void __launch_bounds__(kThreads)
+// row-major. A stride of 0 shares one matrix between all frames: X in the
+// left product (kLeft), Y in the right one. x_wide / y_wide / c_wide say
+// that the operand's rows and base allow 16-byte accesses.
+template <bool kLeft>
+__global__ void __launch_bounds__(kThreads, 2)
 band_product_kernel(const float* __restrict__ X, long long stride_x,
                     const float* __restrict__ Y, long long stride_y,
                     const float* __restrict__ minuend, float* __restrict__ C,
-                    const int2* __restrict__ ranges, bool ranges_by_row,
-                    int T, int m, int k, int n) {
-  // The X slab is stored transposed (+1 padding against bank conflicts) so
-  // that the inner loop reads rows of both slabs.
-  __shared__ float xs[kSlab][kTile + 1];
-  __shared__ float ys[kSlab][kTile];
+                    const int2* __restrict__ ranges, int T, int m, int k,
+                    int n, bool x_wide, bool y_wide, bool c_wide) {
+  constexpr int BM = kLeft ? kBandTile : 2 * kBandTile;
+  constexpr int BN = kLeft ? 2 * kBandTile : kBandTile;
+  constexpr int RM = BM / 16;  // each thread owns RM rows ...
+  constexpr int RN = BN / 16;  // ... by RN columns, in groups of 4
+  constexpr int XW = kSlab + kXPad;
+  constexpr int YW = BN + kYPad;
+
+  __shared__ __align__(16) float xs[kStages][BM][XW];
+  __shared__ __align__(16) float ys[kStages][kSlab][YW];
 
   const int tid = threadIdx.x;
-  const int tx = tid % (kTile / kMicro);
-  const int ty = tid / (kTile / kMicro);
-  const int row0 = blockIdx.y * kTile;
-  const int col0 = blockIdx.x * kTile;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
   const long long plane = (long long)m * n;
+
   // The slabs outside this tile's range hold only zeros of the shared
   // matrix: they are not walked.
   int k_lo = 0, k_hi = k;
   if (ranges != nullptr) {
-    const int2 r = ranges[ranges_by_row ? blockIdx.y : blockIdx.x];
+    const int2 r = ranges[kLeft ? blockIdx.y : blockIdx.x];
     k_lo = r.x;
     k_hi = r.y;
   }
+  const int n_slabs = (k_hi - k_lo + kSlab - 1) / kSlab;
 
   for (int t = blockIdx.z; t < T; t += gridDim.z) {
     const float* x = X + t * stride_x;
     const float* y = Y + t * stride_y;
-    float acc[kMicro][kMicro];
-#pragma unroll
-    for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-      for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
 
-    for (int k0 = k_lo; k0 < k_hi; k0 += kSlab) {
-#pragma unroll
-      for (int i = 0; i < kTile * kSlab / kThreads; ++i) {
-        const int e = tid + i * kThreads;
-        const int r = e / kSlab, c = e % kSlab;
-        const int gr = row0 + r, gc = k0 + c;
-        xs[c][r] = (gr < m && gc < k_hi) ? x[(long long)gr * k + gc] : 0.0f;
+    // Start the copies of the slab at k0 into a ring buffer.
+    auto fill = [&](int stage, int k0) {
+      if (x_wide) {
+        for (int e = tid; e < BM * (kSlab / 4); e += kThreads) {
+          const int r = e / (kSlab / 4), c = (e % (kSlab / 4)) * 4;
+          const int gr = row0 + r, gc = k0 + c;
+          const bool take = gr < m && gc < k_hi;
+          copy16(&xs[stage][r][c], take ? x + (long long)gr * k + gc : x, take);
+        }
+      } else {
+        for (int e = tid; e < BM * kSlab; e += kThreads) {
+          const int r = e / kSlab, c = e % kSlab;
+          const int gr = row0 + r, gc = k0 + c;
+          const bool take = gr < m && gc < k_hi;
+          copy4(&xs[stage][r][c], take ? x + (long long)gr * k + gc : x, take);
+        }
       }
-#pragma unroll
-      for (int i = 0; i < kSlab * kTile / kThreads; ++i) {
-        const int e = tid + i * kThreads;
-        const int r = e / kTile, c = e % kTile;
-        const int gr = k0 + r, gc = col0 + c;
-        ys[r][c] = (gr < k_hi && gc < n) ? y[(long long)gr * n + gc] : 0.0f;
+      if (y_wide) {
+        for (int e = tid; e < kSlab * (BN / 4); e += kThreads) {
+          const int r = e / (BN / 4), c = (e % (BN / 4)) * 4;
+          const int gr = k0 + r, gc = col0 + c;
+          const bool take = gr < k_hi && gc < n;
+          copy16(&ys[stage][r][c], take ? y + (long long)gr * n + gc : y, take);
+        }
+      } else {
+        for (int e = tid; e < kSlab * BN; e += kThreads) {
+          const int r = e / BN, c = e % BN;
+          const int gr = k0 + r, gc = col0 + c;
+          const bool take = gr < k_hi && gc < n;
+          copy4(&ys[stage][r][c], take ? y + (long long)gr * n + gc : y, take);
+        }
       }
-      __syncthreads();
+    };
+
+    float acc[RM][RN];
 #pragma unroll
-      for (int kk = 0; kk < kSlab; ++kk) {
-        float a[kMicro], b[kMicro];
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int i = 0; i < kMicro; ++i) a[i] = xs[kk][ty * kMicro + i];
+      for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
+
+    // The thread's columns are groups of 4 that lie 64 apart, so that a
+    // quarter warp reads 128 contiguous bytes of a Y row.
+    auto multiply = [&](int stage) {
 #pragma unroll
-        for (int j = 0; j < kMicro; ++j) b[j] = ys[kk][tx * kMicro + j];
+      for (int kk = 0; kk < kSlab; kk += 4) {
+        float xa[RM][4];
 #pragma unroll
-        for (int i = 0; i < kMicro; ++i)
+        for (int i = 0; i < RM; ++i) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(&xs[stage][ty * RM + i][kk]);
+          xa[i][0] = v.x, xa[i][1] = v.y, xa[i][2] = v.z, xa[i][3] = v.w;
+        }
 #pragma unroll
-          for (int j = 0; j < kMicro; ++j)
-            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int g = 0; g < RN / 4; ++g) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                &ys[stage][kk + q][g * 64 + tx * 4]);
+#pragma unroll
+            for (int i = 0; i < RM; ++i) {
+              acc[i][g * 4 + 0] = fmaf(xa[i][q], v.x, acc[i][g * 4 + 0]);
+              acc[i][g * 4 + 1] = fmaf(xa[i][q], v.y, acc[i][g * 4 + 1]);
+              acc[i][g * 4 + 2] = fmaf(xa[i][q], v.z, acc[i][g * 4 + 2]);
+              acc[i][g * 4 + 3] = fmaf(xa[i][q], v.w, acc[i][g * 4 + 3]);
+            }
+          }
+        }
       }
-      __syncthreads();
+    };
+
+    // Every step commits a group, empty or not, so that the count of groups
+    // in flight tells which slab has landed, whatever the range's length.
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < n_slabs) fill(s, k_lo + s * kSlab);
+      commit();
     }
+    for (int i = 0; i < n_slabs; ++i) {
+      wait_but<kStages - 2>();  // slab i has landed (this thread's copies)
+      __syncthreads();          // ... and everyone's; slab i-1 is read out
+      const int ahead = i + kStages - 1;
+      if (ahead < n_slabs) fill(ahead % kStages, k_lo + ahead * kSlab);
+      commit();
+      multiply(i % kStages);
+    }
+    wait_but<0>();
 
+    const float* sub = minuend != nullptr ? minuend + t * plane : nullptr;
+    float* c = C + t * plane;
 #pragma unroll
-    for (int i = 0; i < kMicro; ++i) {
-      const int r = row0 + ty * kMicro + i;
+    for (int i = 0; i < RM; ++i) {
+      const int r = row0 + ty * RM + i;
       if (r >= m) continue;
 #pragma unroll
-      for (int j = 0; j < kMicro; ++j) {
-        const int c = col0 + tx * kMicro + j;
-        if (c >= n) continue;
-        const long long o = t * plane + (long long)r * n + c;
-        C[o] = minuend != nullptr ? minuend[o] - acc[i][j] : acc[i][j];
+      for (int g = 0; g < RN / 4; ++g) {
+        const int col = col0 + g * 64 + tx * 4;
+        const long long o = (long long)r * n + col;
+        if (c_wide && col < n) {
+          float4 v = make_float4(acc[i][g * 4], acc[i][g * 4 + 1],
+                                 acc[i][g * 4 + 2], acc[i][g * 4 + 3]);
+          if (sub != nullptr) {
+            const float4 s = *reinterpret_cast<const float4*>(sub + o);
+            v = make_float4(s.x - v.x, s.y - v.y, s.z - v.z, s.w - v.w);
+          }
+          *reinterpret_cast<float4*>(c + o) = v;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (col + j < n)
+              c[o + j] = sub != nullptr ? sub[o + j] - acc[i][g * 4 + j]
+                                        : acc[i][g * 4 + j];
+        }
       }
     }
+    // The next frame's first copies overwrite buffers that a slower warp
+    // may still be reading.
+    __syncthreads();
   }
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <bool kLeft>
 int launch(const float* X, long long stride_x, const float* Y,
            long long stride_y, const float* minuend, float* C,
-           const int* ranges, int n_ranges, bool ranges_by_row, int T, int m,
-           int k, int n, void* stream) {
+           const int* ranges, int n_ranges, int T, int m, int k, int n,
+           void* stream) {
+  constexpr int BM = kLeft ? kBandTile : 2 * kBandTile;
+  constexpr int BN = kLeft ? 2 * kBandTile : kBandTile;
   if (ranges != nullptr &&
-      n_ranges != ((ranges_by_row ? m : n) + kTile - 1) / kTile)
+      n_ranges != ((kLeft ? m : n) + kBandTile - 1) / kBandTile)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile,
+  // 16-byte accesses need rows (and with them frames) that start on 16
+  // bytes; the half of the pyramid's levels that do not have them take the
+  // 4-byte copies.
+  const bool x_wide = k % 4 == 0 && aligned16(X);
+  const bool y_wide = n % 4 == 0 && aligned16(Y);
+  const bool c_wide = n % 4 == 0 && aligned16(C) &&
+                      (minuend == nullptr || aligned16(minuend));
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM,
                   T < kMaxGridZ ? T : kMaxGridZ);
-  band_product_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      X, stride_x, Y, stride_y, minuend, C,
-      reinterpret_cast<const int2*>(ranges), ranges_by_row, T, m, k, n);
+  band_product_kernel<kLeft>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          X, stride_x, Y, stride_y, minuend, C,
+          reinterpret_cast<const int2*>(ranges), T, m, k, n, x_wide, y_wide,
+          c_wide);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -144,15 +266,16 @@ int launch(const float* X, long long stride_x, const float* Y,
 
 // C interface (loaded with ctypes). Each returns the cudaError_t of its
 // launch; the caller allocates every buffer and passes its current stream.
+// ranges is null (walk the whole inner dimension) or holds n_ranges pairs
+// [k_lo, k_hi), one per kBandTile rows (left) or columns (right) of A,
+// multiples of 8 or equal to k, outside which that tile of A is all zero.
 
 // C[t] = A * B[t]: A is (m,k), B is (T,k,n), C is (T,m,n).
-// ranges (or null: walk everything) holds one [k_lo, k_hi) pair per kTile rows
-// of A; a_exact is not used yet.
 extern "C" int band_left_f32(const float* A, const float* B, float* C, int T,
                              int m, int k, int n, const int* ranges,
                              int n_ranges, int a_exact, void* stream) {
-  return launch(A, 0, B, (long long)k * n, nullptr, C, ranges, n_ranges, true,
-                T, m, k, n, stream);
+  return launch<true>(A, 0, B, (long long)k * n, nullptr, C, ranges, n_ranges,
+                      T, m, k, n, stream);
 }
 
 // C[t] = B[t] * A, or minuend[t] - B[t] * A when minuend is not null:
@@ -161,6 +284,6 @@ extern "C" int band_right_f32(const float* B, const float* A,
                               const float* minuend, float* C, int T, int m,
                               int k, int n, const int* ranges, int n_ranges,
                               int a_exact, void* stream) {
-  return launch(B, (long long)m * k, A, 0, minuend, C, ranges, n_ranges,
-                false, T, m, k, n, stream);
+  return launch<false>(B, (long long)m * k, A, 0, minuend, C, ranges, n_ranges,
+                       T, m, k, n, stream);
 }

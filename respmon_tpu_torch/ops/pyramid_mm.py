@@ -234,10 +234,9 @@ def band_left(a: Union[torch.Tensor, BandOperator],
     everything).  Terms of a skipped range are left out, not multiplied by
     zero, so ``b`` is expected finite (frames are): a dense product would
     turn an Inf or NaN there into NaN."""
-    matrix = a.matrix if isinstance(a, BandOperator) else a
-    if matrix.device.type == "cpu" and b.device.type == "cpu":
-        return torch.matmul(matrix, b)
     a, ranges, n_ranges, exact = _unpack(a, "left", "band_left")
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return torch.matmul(a, b)
     _check(a, 2, "band_left")
     _check(b, 3, "band_left")
     if a.device != b.device:
@@ -264,11 +263,10 @@ def band_right(b: torch.Tensor, a: Union[torch.Tensor, BandOperator],
     or ``minuend[t] - b[t] @ a`` (the ``band_right_f32`` kernel).  ``a`` is
     a ``BandOperator`` (the kernel walks only each column tile's range) or
     a bare tensor; ``b`` is expected finite, as for ``band_left``."""
-    matrix = a.matrix if isinstance(a, BandOperator) else a
-    tensors = (b, matrix) if minuend is None else (b, matrix, minuend)
-    if all(x.device.type == "cpu" for x in tensors):
-        return _matmul_right(b, matrix, minuend)
     a, ranges, n_ranges, exact = _unpack(a, "right", "band_right")
+    tensors = (b, a) if minuend is None else (b, a, minuend)
+    if all(x.device.type == "cpu" for x in tensors):
+        return _matmul_right(b, a, minuend)
     _check(b, 3, "band_right")
     _check(a, 2, "band_right")
     (t_len, m, k), (ka, n) = b.shape, a.shape
