@@ -11,21 +11,32 @@
 //   band_left_f32 :  C[t] = A * B[t]                  A (m,k), B (T,k,n)
 //   band_right_f32:  C[t] = B[t] * A  or  M[t] - B[t] * A
 //                                                     B (T,m,k), A (k,n)
-// The products are computed here, by FFMA on CUDA cores, not by a library.
+// The products are computed here, on the tensor cores, not by a library.
 //
 // Bound: the bytes that must move (every operand read once, the output
 // written once). The matrices have at most 5 nonzeros a row, so the
-// operations the data needs are few.
+// operations the data needs are few; what the design has to do is keep the
+// arithmetic and the re-reads out of the way of the one pass over the video.
 //
-// Design. A block owns one output tile of one frame: 64 rows of A by 128
-// columns (left) or 128 rows by 64 columns of A (right), so the side along
-// which A is banded is kBandTile wide and the block reads its own
-// [k_lo, k_hi) from the ranges the host computed from A's values. It walks
-// only that range, in slabs of 16 staged through a ring of three
-// shared-memory buffers that cp.async fills (16 bytes a thread, or 4 bytes
-// where a width or a pointer does not allow 16), so the next two slabs load
-// while one is multiplied. Loads outside the operands or the range are
-// zero-filled by the copy, stores are masked.
+// Design.
+// - Only the band is walked. A block owns one output tile of one frame: 64
+//   rows of A by 128 columns (left) or 128 rows by 64 columns of A (right),
+//   so the side along which A is banded is kBandTile wide, and the block
+//   reads its own [k_lo, k_hi) from the ranges the host computed from A's
+//   values (ops/pyramid_mm.slab_ranges). A dense A gives the full range and
+//   the dense product, an all-zero tile an empty range and zeros.
+// - The range is walked in slabs of 16 through a ring of three shared-memory
+//   buffers that cp.async fills (16 bytes a thread, or 4 bytes where a width
+//   or a pointer does not allow 16: half of a pyramid's levels), so the next
+//   two slabs load while one is multiplied. Copies outside the operands or
+//   the range fill with zeros, stores are masked.
+// - The arithmetic is TF32 mma.sync (m16n8k8, f32 accumulators) at float32
+//   accuracy: the video operand is split in registers into hi = tf32(x) and
+//   lo = tf32(x - hi) and multiplied twice (hi + lo is x to 2^-21 |x|). A
+//   needs no split when the host found every entry exact in TF32, as the
+//   pyramid's are (sums of 1/16, 4/16, 6/16 or 1/8, 6/8, 1/2); any other A
+//   is split too (hi*hi + hi*lo + lo*hi). The padded rows of the two slabs
+//   make every fragment read free of bank conflicts.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,11 +80,40 @@ __device__ __forceinline__ void wait_but() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// x as TF32 numbers: hi is x rounded to TF32, lo the rounded rest.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+template <bool kSplit>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kSplit) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);  // exact in TF32: the low bits are zero
+    lo = 0;
+  }
+}
+
+// c += a * b for a 16x8 (row-major) and an 8x8 (column-major) TF32 fragment.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // C[t] = X[t] * Y[t] (or M[t] - X[t] * Y[t]); X is (m,k), Y is (k,n), all
 // row-major. A stride of 0 shares one matrix between all frames: X in the
-// left product (kLeft), Y in the right one. x_wide / y_wide / c_wide say
-// that the operand's rows and base allow 16-byte accesses.
-template <bool kLeft>
+// left product (kLeft), Y in the right one; kExact says that it is exact in
+// TF32. x_wide / y_wide say that the operand's rows and base allow 16-byte
+// copies, c_wide that the output's (and the minuend's) allow 8-byte accesses.
+template <bool kLeft, bool kExact>
 __global__ void __launch_bounds__(kThreads, 2)
 band_product_kernel(const float* __restrict__ X, long long stride_x,
                     const float* __restrict__ Y, long long stride_y,
@@ -82,8 +122,9 @@ band_product_kernel(const float* __restrict__ X, long long stride_x,
                     int n, bool x_wide, bool y_wide, bool c_wide) {
   constexpr int BM = kLeft ? kBandTile : 2 * kBandTile;
   constexpr int BN = kLeft ? 2 * kBandTile : kBandTile;
-  constexpr int RM = BM / 16;  // each thread owns RM rows ...
-  constexpr int RN = BN / 16;  // ... by RN columns, in groups of 4
+  constexpr bool kSplitX = !kLeft || !kExact;  // the video is always split
+  constexpr bool kSplitY = kLeft || !kExact;
+  constexpr int kWarpsN = BN / 32;  // a warp owns 32 x 32 outputs
   constexpr int XW = kSlab + kXPad;
   constexpr int YW = BN + kYPad;
 
@@ -91,8 +132,10 @@ band_product_kernel(const float* __restrict__ X, long long stride_x,
   __shared__ __align__(16) float ys[kStages][kSlab][YW];
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int gid = (tid % 32) / 4;  // the lane's place in an MMA fragment
+  const int tig = tid % 4;
+  const int wr = (tid / 32) / kWarpsN * 32;  // the warp's corner in the tile
+  const int wc = (tid / 32) % kWarpsN * 32;
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
   const long long plane = (long long)m * n;
@@ -145,39 +188,42 @@ band_product_kernel(const float* __restrict__ X, long long stride_x,
       }
     };
 
-    float acc[RM][RN];
+    // acc[i][j] is the 16x8 fragment at rows wr + 16 i, columns wc + 8 j.
+    float acc[2][4][4];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
 
-    // The thread's columns are groups of 4 that lie 64 apart, so that a
-    // quarter warp reads 128 contiguous bytes of a Y row.
     auto multiply = [&](int stage) {
 #pragma unroll
-      for (int kk = 0; kk < kSlab; kk += 4) {
-        float xa[RM][4];
+      for (int kk = 0; kk < kSlab; kk += 8) {
+        uint32_t xh[2][4], xl[2][4], yh[4][2], yl[4][2];
 #pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(&xs[stage][ty * RM + i][kk]);
-          xa[i][0] = v.x, xa[i][1] = v.y, xa[i][2] = v.z, xa[i][3] = v.w;
+        for (int i = 0; i < 2; ++i) {
+          const float* p = &xs[stage][wr + i * 16 + gid][kk + tig];
+          split<kSplitX>(p[0], xh[i][0], xl[i][0]);
+          split<kSplitX>(p[8 * XW], xh[i][1], xl[i][1]);
+          split<kSplitX>(p[4], xh[i][2], xl[i][2]);
+          split<kSplitX>(p[8 * XW + 4], xh[i][3], xl[i][3]);
         }
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int j = 0; j < 4; ++j) {
+          const float* p = &ys[stage][kk + tig][wc + j * 8 + gid];
+          split<kSplitY>(p[0], yh[j][0], yl[j][0]);
+          split<kSplitY>(p[4 * YW], yh[j][1], yl[j][1]);
+        }
+        // The small terms first.
 #pragma unroll
-          for (int g = 0; g < RN / 4; ++g) {
-            const float4 v = *reinterpret_cast<const float4*>(
-                &ys[stage][kk + q][g * 64 + tx * 4]);
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-            for (int i = 0; i < RM; ++i) {
-              acc[i][g * 4 + 0] = fmaf(xa[i][q], v.x, acc[i][g * 4 + 0]);
-              acc[i][g * 4 + 1] = fmaf(xa[i][q], v.y, acc[i][g * 4 + 1]);
-              acc[i][g * 4 + 2] = fmaf(xa[i][q], v.z, acc[i][g * 4 + 2]);
-              acc[i][g * 4 + 3] = fmaf(xa[i][q], v.w, acc[i][g * 4 + 3]);
-            }
+          for (int j = 0; j < 4; ++j) {
+            if constexpr (kSplitX) mma_tf32(acc[i][j], xl[i], yh[j]);
+            if constexpr (kSplitY) mma_tf32(acc[i][j], xh[i], yl[j]);
+            mma_tf32(acc[i][j], xh[i], yh[j]);
           }
-        }
       }
     };
 
@@ -200,42 +246,42 @@ band_product_kernel(const float* __restrict__ X, long long stride_x,
 
     const float* sub = minuend != nullptr ? minuend + t * plane : nullptr;
     float* c = C + t * plane;
+    // A fragment holds, per lane, two neighbouring columns of rows gid and
+    // gid + 8.
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = row0 + ty * RM + i;
-      if (r >= m) continue;
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int g = 0; g < RN / 4; ++g) {
-        const int col = col0 + g * 64 + tx * 4;
-        const long long o = (long long)r * n + col;
-        if (c_wide && col < n) {
-          float4 v = make_float4(acc[i][g * 4], acc[i][g * 4 + 1],
-                                 acc[i][g * 4 + 2], acc[i][g * 4 + 3]);
-          if (sub != nullptr) {
-            const float4 s = *reinterpret_cast<const float4*>(sub + o);
-            v = make_float4(s.x - v.x, s.y - v.y, s.z - v.z, s.w - v.w);
+      for (int half = 0; half < 2; ++half) {
+        const int r = row0 + wr + i * 16 + half * 8 + gid;
+        if (r >= m) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = col0 + wc + j * 8 + 2 * tig;
+          const long long o = (long long)r * n + col;
+          float v0 = acc[i][j][2 * half], v1 = acc[i][j][2 * half + 1];
+          if (c_wide && col < n) {
+            if (sub != nullptr) {
+              const float2 s = *reinterpret_cast<const float2*>(sub + o);
+              v0 = s.x - v0, v1 = s.y - v1;
+            }
+            *reinterpret_cast<float2*>(c + o) = make_float2(v0, v1);
+          } else {
+            if (col < n) c[o] = sub != nullptr ? sub[o] - v0 : v0;
+            if (col + 1 < n) c[o + 1] = sub != nullptr ? sub[o + 1] - v1 : v1;
           }
-          *reinterpret_cast<float4*>(c + o) = v;
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (col + j < n)
-              c[o + j] = sub != nullptr ? sub[o + j] - acc[i][g * 4 + j]
-                                        : acc[i][g * 4 + j];
         }
       }
-    }
     // The next frame's first copies overwrite buffers that a slower warp
     // may still be reading.
     __syncthreads();
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <bool kLeft>
+template <bool kLeft, bool kExact>
 int launch(const float* X, long long stride_x, const float* Y,
            long long stride_y, const float* minuend, float* C,
            const int* ranges, int n_ranges, int T, int m, int k, int n,
@@ -248,13 +294,13 @@ int launch(const float* X, long long stride_x, const float* Y,
   // 16-byte accesses need rows (and with them frames) that start on 16
   // bytes; the half of the pyramid's levels that do not have them take the
   // 4-byte copies.
-  const bool x_wide = k % 4 == 0 && aligned16(X);
-  const bool y_wide = n % 4 == 0 && aligned16(Y);
-  const bool c_wide = n % 4 == 0 && aligned16(C) &&
-                      (minuend == nullptr || aligned16(minuend));
+  const bool x_wide = k % 4 == 0 && aligned(X, 16);
+  const bool y_wide = n % 4 == 0 && aligned(Y, 16);
+  const bool c_wide = n % 2 == 0 && aligned(C, 8) &&
+                      (minuend == nullptr || aligned(minuend, 8));
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM,
                   T < kMaxGridZ ? T : kMaxGridZ);
-  band_product_kernel<kLeft>
+  band_product_kernel<kLeft, kExact>
       <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           X, stride_x, Y, stride_y, minuend, C,
           reinterpret_cast<const int2*>(ranges), T, m, k, n, x_wide, y_wide,
@@ -269,13 +315,18 @@ int launch(const float* X, long long stride_x, const float* Y,
 // ranges is null (walk the whole inner dimension) or holds n_ranges pairs
 // [k_lo, k_hi), one per kBandTile rows (left) or columns (right) of A,
 // multiples of 8 or equal to k, outside which that tile of A is all zero.
+// a_exact != 0 says that every entry of A is exact in TF32 (its low 13
+// significand bits are zero); A is then not split.
 
 // C[t] = A * B[t]: A is (m,k), B is (T,k,n), C is (T,m,n).
 extern "C" int band_left_f32(const float* A, const float* B, float* C, int T,
                              int m, int k, int n, const int* ranges,
                              int n_ranges, int a_exact, void* stream) {
-  return launch<true>(A, 0, B, (long long)k * n, nullptr, C, ranges, n_ranges,
-                      T, m, k, n, stream);
+  const long long frame = (long long)k * n;
+  return a_exact ? launch<true, true>(A, 0, B, frame, nullptr, C, ranges,
+                                      n_ranges, T, m, k, n, stream)
+                 : launch<true, false>(A, 0, B, frame, nullptr, C, ranges,
+                                       n_ranges, T, m, k, n, stream);
 }
 
 // C[t] = B[t] * A, or minuend[t] - B[t] * A when minuend is not null:
@@ -284,6 +335,9 @@ extern "C" int band_right_f32(const float* B, const float* A,
                               const float* minuend, float* C, int T, int m,
                               int k, int n, const int* ranges, int n_ranges,
                               int a_exact, void* stream) {
-  return launch<false>(B, (long long)m * k, A, 0, minuend, C, ranges, n_ranges,
-                       T, m, k, n, stream);
+  const long long frame = (long long)m * k;
+  return a_exact ? launch<false, true>(B, frame, A, 0, minuend, C, ranges,
+                                       n_ranges, T, m, k, n, stream)
+                 : launch<false, false>(B, frame, A, 0, minuend, C, ranges,
+                                        n_ranges, T, m, k, n, stream);
 }
