@@ -50,10 +50,15 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--csrc", type=Path, default=None,
                         help="directory holding another band_mm.cu")
+    parser.add_argument("--keep-going", action="store_true",
+                        help="print a failed check and go on (to time a "
+                             "source that is wrong on purpose)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("band_bench: no CUDA device", file=sys.stderr)
         return 1
+    if args.keep_going:
+        cs.check = lambda cond, what: cond or cs.emit({"failed": what})
     import respmon_tpu_torch  # noqa: F401  (sets the precision policy)
     from respmon_tpu_torch.ops import _build, pyramid_cuda as pc
     from respmon_tpu_torch.ops import pyramid_mm as pm

@@ -17,6 +17,7 @@
 // written once). The matrices have at most 5 nonzeros a row, so the
 // operations the data needs are few; what the design has to do is keep the
 // arithmetic and the re-reads out of the way of the one pass over the video.
+// Measured times, beside the bound and torch.matmul's: PERF.md.
 //
 // Design.
 // - Only the band is walked. A block owns one output tile of one frame: 64
@@ -25,11 +26,12 @@
 //   reads its own [k_lo, k_hi) from the ranges the host computed from A's
 //   values (ops/pyramid_mm.slab_ranges). A dense A gives the full range and
 //   the dense product, an all-zero tile an empty range and zeros.
-// - The range is walked in slabs of 16 through a ring of three shared-memory
-//   buffers that cp.async fills (16 bytes a thread, or 4 bytes where a width
-//   or a pointer does not allow 16: half of a pyramid's levels), so the next
-//   two slabs load while one is multiplied. Copies outside the operands or
-//   the range fill with zeros, stores are masked.
+// - The range is walked in slabs of 32 through a ring of three shared-memory
+//   buffers (80 KB a block, two blocks an SM) that cp.async fills (16 bytes
+//   a thread, or 4 bytes where a width or a pointer does not allow 16: half
+//   of a pyramid's levels), so the next two slabs load while one is
+//   multiplied. Copies outside the operands or the range fill with zeros,
+//   stores are masked.
 // - The arithmetic is TF32 mma.sync (m16n8k8, f32 accumulators) at float32
 //   accuracy: the video operand is split in registers into hi = tf32(x) and
 //   lo = tf32(x - hi) and multiplied twice (hi + lo is x to 2^-21 |x|). A
@@ -44,12 +46,13 @@
 namespace {
 
 constexpr int kBandTile = 64;  // tile extent along A's banded side
-constexpr int kSlab = 16;      // inner-dimension slab
+constexpr int kSlab = 32;      // inner-dimension slab
 constexpr int kStages = 3;     // slabs in the ring
 constexpr int kThreads = 256;
 constexpr int kXPad = 4;       // row paddings of the two slabs in shared memory
 constexpr int kYPad = 8;
 constexpr int kMaxGridZ = 65535;
+constexpr int kMaxDevices = 64;
 
 // Asynchronous copies global -> shared of 16 or 4 bytes; with take == false
 // nothing is read and the destination is filled with zeros.
@@ -80,18 +83,16 @@ __device__ __forceinline__ void wait_but() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// x as TF32 numbers: hi is x rounded to TF32, lo the rounded rest.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
+// x as two TF32 numbers (float32 bit patterns whose low 13 bits are zero):
+// hi is x rounded to nearest, ties away from zero (half a TF32 ulp added to
+// the magnitude, the low bits cleared: what cvt.rna.tf32.f32 gives, in
+// integer instructions, which the card issues faster than conversions); lo
+// is the rest x - hi, which float32 holds exactly, rounded the same way.
 template <bool kSplit>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   if constexpr (kSplit) {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
   } else {
     hi = __float_as_uint(x);  // exact in TF32: the low bits are zero
     lo = 0;
@@ -128,8 +129,11 @@ band_product_kernel(const float* __restrict__ X, long long stride_x,
   constexpr int XW = kSlab + kXPad;
   constexpr int YW = BN + kYPad;
 
-  __shared__ __align__(16) float xs[kStages][BM][XW];
-  __shared__ __align__(16) float ys[kStages][kSlab][YW];
+  // The ring: kStages slabs of X, then kStages slabs of Y.
+  extern __shared__ __align__(16) float ring[];
+  float(*xs)[BM][XW] = reinterpret_cast<float(*)[BM][XW]>(ring);
+  float(*ys)[kSlab][YW] =
+      reinterpret_cast<float(*)[kSlab][YW]>(ring + kStages * BM * XW);
 
   const int tid = threadIdx.x;
   const int gid = (tid % 32) / 4;  // the lane's place in an MMA fragment
@@ -300,8 +304,23 @@ int launch(const float* X, long long stride_x, const float* Y,
                       (minuend == nullptr || aligned(minuend, 8));
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM,
                   T < kMaxGridZ ? T : kMaxGridZ);
+  // The ring is more than the 48 KB a kernel gets without asking: ask, once
+  // per device.
+  constexpr int kRingBytes =
+      kStages * (BM * (kSlab + kXPad) + kSlab * (BN + kYPad)) * sizeof(float);
+  static bool allowed[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices || !allowed[device]) {
+    err = cudaFuncSetAttribute(band_product_kernel<kLeft, kExact>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kRingBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device < kMaxDevices) allowed[device] = true;
+  }
   band_product_kernel<kLeft, kExact>
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<grid, kThreads, kRingBytes, static_cast<cudaStream_t>(stream)>>>(
           X, stride_x, Y, stride_y, minuend, C,
           reinterpret_cast<const int2*>(ranges), T, m, k, n, x_wide, y_wide,
           c_wide);

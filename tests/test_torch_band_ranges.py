@@ -20,7 +20,7 @@ from respmon_tpu_torch.ops.pyramid_mm import BAND_TILE, RANGE_ALIGN
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
-SLAB = 16   # kSlab of band_mm.cu
+SLAB = 32   # kSlab of band_mm.cu
 GEOMETRIES = [(480, 640, 9, 4), (1080, 1920, 9, 4), (5, 7, 3, 0),
               (45, 77, 5, 1), (1, 1, 1, 0)]
 KINDS = ["dh", "dw_t", "uh", "uw_t"]
@@ -74,11 +74,13 @@ def test_ranges_cover_every_nonzero_of_the_pyramid_operators(geometry, kind):
             assert tile[:, max(hi - RANGE_ALIGN, 0):hi].any()
 
 
-def test_the_first_640x480_operators_walk_under_a_third_of_their_slabs():
+def test_the_first_640x480_operators_walk_a_third_of_their_slabs_or_less():
     dh, dw_t, _, _ = pyramid_mm._operators(480, 640, 9, 4, CPU)
     for op, k in ((dh[0], 480), (dw_t[0], 640)):
-        slabs = -(-(op.ranges[:, 1] - op.ranges[:, 0]) // SLAB)
-        assert int(slabs.max()) <= 9 and k // SLAB in (30, 40)
+        width = op.ranges[:, 1] - op.ranges[:, 0]
+        assert int(width.max()) <= 2 * BAND_TILE + 2 * RANGE_ALIGN
+        slabs = -(-width // SLAB)
+        assert int(slabs.max()) <= 5 and k // SLAB in (15, 20)
 
 
 @pytest.mark.parametrize("side", ["left", "right"])

@@ -117,6 +117,47 @@ def test_band_kernels_match_matmul_and_the_stencil_kernels(dev, shape, levels,
         assert float((g - k).abs().max()) <= 1e-5
 
 
+N_BAND_CASES = 14
+
+
+@pytest.mark.parametrize("index", range(N_BAND_CASES))
+def test_band_kernels_corner_cases_match_matmul(dev, index):
+    # The cases of chip_smoke.py: dense matrices with and without ranges,
+    # an all-zero tile, operands that 16-byte copies cannot take, the
+    # minuend form.  rtol 1e-5 of the result's largest magnitude: the
+    # kernel sums in another order and adds two TF32 terms per product.
+    import chip_smoke
+
+    cases = chip_smoke.band_parity_cases(dev)
+    assert len(cases) == N_BAND_CASES
+    name, side, (a, b, minuend) = cases[index]
+    matrix = a.matrix if isinstance(a, pyramid_mm.BandOperator) else a
+    pyramid_mm.reset_launches()
+    if side == "left":
+        got, want = pyramid_mm.band_left(a, b), torch.matmul(matrix, b)
+    else:
+        got = pyramid_mm.band_right(b, a, minuend)
+        want = pyramid_mm._matmul_right(b, matrix, minuend)
+    torch.cuda.synchronize()
+    assert pyramid_mm.LAUNCHES[f"band_{side}"] == 1, name
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-5 * scale, name
+
+
+def test_band_kernels_with_ranges_equal_the_full_walk(dev):
+    # The pyramid's operators: skipping the slabs outside a tile's range
+    # leaves out only products with zeros, so the result is the same sum.
+    v = _video((3, 480, 640), dev)
+    dh, dw_t, _, _ = pyramid_mm._operators(480, 640, 9, 4, v.device)
+    half = pyramid_mm.band_left(dh[0], v)
+    bare = pyramid_mm.band_left(dh[0]._replace(ranges=torch.tensor(
+        [[0, 480]] * 4, dtype=torch.int32, device=dev)), v)
+    assert float((half - bare).abs().max()) <= 1e-6
+    got = pyramid_mm.band_right(half, dw_t[0])
+    want = torch.matmul(half, dw_t[0].matrix)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
 def test_band_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     a = _video((8, 16), dev)
     b = _video((2, 16, 12), dev)
@@ -132,6 +173,11 @@ def test_band_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         pyramid_mm.band_right(b, a)
     with pytest.raises(ValueError):
         pyramid_mm.band_right(b, _video((12, 5), dev), minuend=b)
+    op = pyramid_mm.band_operator(a.cpu().numpy(), "left", dev)
+    with pytest.raises(ValueError):
+        pyramid_mm.band_right(b, op)
+    with pytest.raises(ValueError):
+        pyramid_mm.band_left(op._replace(ranges=op.ranges.cpu()), b)
 
 
 def test_flow_process_clip_card_matches_cpu(dev):
