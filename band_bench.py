@@ -9,9 +9,11 @@ time another version of the source behind the same wrappers), prints what
 ``torch.matmul``, and times ``band_left_f32`` and ``band_right_f32`` at the
 two largest products of the 640x480 chain: with the operators' slab ranges
 (as the chain calls them), as bare matrices (every slab walked, both
-operands split), and ``torch.matmul`` on the same operands; then the whole
+operands split), and ``torch.matmul`` on the same operands; then the host's time per call
+at a tiny shape, and the whole
 chain ``laplacian_band_levels_mm`` at (128,480,640) and (8,1080,1920)
-against the ``torch.matmul`` chain and the stencil kernels.  One JSON line
+against the ``torch.matmul`` chain and the stencil kernels, each also
+replayed from a CUDA graph (device time without the host's).  One JSON line
 per reading, the card's name and power limit last.  Times are medians of 20
 CUDA-event readings of 10 calls in a row each.
 """
@@ -109,6 +111,26 @@ def main() -> int:
                  f"{name} within {cs.K3_TOL} of torch.matmul")
     del v, half
 
+    # What a call costs on the host: a product too small to occupy the
+    # card, called many times without waiting for it.
+    tiny = torch.rand((2, 8, 8), generator=gen, device=dev)
+    tiny_op = pm.band_operator(pm._np_down_matrix(8), "left", dev)
+    host_us = {}
+    for what, call in [
+            ("band_left", lambda: pm.band_left(tiny_op, tiny)),
+            ("torch.matmul", lambda: torch.matmul(tiny_op.matrix, tiny)),
+            ("torch.empty", lambda: torch.empty((2, 4, 8), device=dev)),
+            ("current_stream",
+             lambda: torch.cuda.current_stream(dev).cuda_stream)]:
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            call()
+        host_us[what] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    cs.emit({"phase": "host_time_per_call_us", **host_us})
+
     for shape in [(128, 480, 640), (8, 1080, 1920)]:
         v = torch.rand(shape, generator=gen, device=dev)
         got = pm.laplacian_band_levels_mm(v, 9, 4)
@@ -124,6 +146,12 @@ def main() -> int:
                 lambda: pm.laplacian_band_levels_mm_ref(v, 9, 4))
             row[f"k1_ms_{turn}"] = cs.cuda_ms(
                 lambda: pc.laplacian_band_levels(v, 9, 4))
+        row["graph_ms"] = cs.graph_ms(
+            lambda: pm.laplacian_band_levels_mm(v, 9, 4))
+        row["matmul_graph_ms"] = cs.graph_ms(
+            lambda: pm.laplacian_band_levels_mm_ref(v, 9, 4))
+        row["k1_graph_ms"] = cs.graph_ms(
+            lambda: pc.laplacian_band_levels(v, 9, 4))
         cs.emit(row)
         cs.check(max(row["max_abs_err"], row["max_abs_err_vs_k1"])
                  <= cs.K3_TOL, f"K3 {shape} within {cs.K3_TOL}")

@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from ``respmon_tpu_torch/csrc`` (one nvcc
 per source, into ``build/``), checks each against its plain
-PyTorch version on the card, and drives the whole-clip path
+PyTorch version on the card (the band kernels also on dense, all-zero-tile,
+unaligned and minuend operands), and drives the whole-clip path
 ``process_clip`` at 640x480 in average mode and in flow mode (Shi-Tomasi
 corners, pyramidal LK, 2x2 PCA), one 640x480 calibration with the
 band-matrix pyramid (K3) in place of the stencil one (K1), and one 1080p
@@ -24,6 +25,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 FPS = 10.0
 REPEATS = 20
@@ -48,7 +50,7 @@ def check(cond, what: str) -> None:
 def cuda_ms(fn, repeats: int = REPEATS, calls: int = 1) -> float:
     """Median device time of one ``fn`` in ms (CUDA events, after warm-up).
     With ``calls`` > 1 each reading spans that many calls in a row and is
-    divided by it, so the host's time to issue a call (tens of
+    divided by it, so the host's time to make a call (tens of
     microseconds) does not count against a kernel as short as that."""
     import torch
 
@@ -76,6 +78,19 @@ def wall_s(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def graph_ms(fn) -> float:
+    """Median device time of ``fn`` replayed from a CUDA graph: what its
+    launches take when the host's time to launch them is out of the way."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kept = fn()   # noqa: F841  (the outputs live as long as the graph)
+    return cuda_ms(graph.replay)
 
 
 def max_abs(got, want) -> float:
@@ -132,12 +147,17 @@ def phase_build():
     from respmon_tpu_torch.ops import _build, pyramid_cuda, pyramid_mm
 
     root = _build.BUILD_DIR.parent.parent
-    libraries = {}
-    for name in ("pyramid", "band_mm"):
+
+    def build(name):
         t0 = time.perf_counter()
         path = _build.build(name)
-        libraries[name] = {"library": str(path.relative_to(root)),
-                           "seconds": time.perf_counter() - t0}
+        return {"library": str(path.relative_to(root)),
+                "seconds": time.perf_counter() - t0}
+
+    # One nvcc per source, both started together.
+    names = ("pyramid", "band_mm")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libraries = dict(zip(names, pool.map(build, names)))
     pyramid_cuda._lib()
     pyramid_mm._lib()
     emit({"phase": "build", "libraries": libraries})
@@ -241,9 +261,9 @@ BAND_CALLS = 10  # calls in a row per timing of a band kernel, see cuda_ms
 
 
 def band_parity_cases(dev):
-    """(name, product, operands) of the band kernels' corner cases: how the
-    skipping follows the matrix's data, and the operands a 16-byte copy
-    cannot take.  Operands are (matrix or operator, video, minuend)."""
+    """(name, side, (matrix or operator, video, minuend)) of the band
+    kernels' corner cases: how the skipping follows the matrix's data, and
+    the operands a 16-byte copy cannot take."""
     import numpy as np
     import torch
 
@@ -257,54 +277,55 @@ def band_parity_cases(dev):
     def video(*shape, offset=0):
         # offset > 0: the frames start that many floats into an allocation,
         # so the first frame's base is not 16-byte aligned.
-        n = int(np.prod(shape))
-        flat = torch.from_numpy(rand(n + offset)).to(dev)
+        flat = torch.from_numpy(rand(int(np.prod(shape)) + offset)).to(dev)
         return flat[offset:].view(shape)
 
     def band(m, k):
-        # A band of random width around the diagonal of an (m, k) matrix.
+        # Random values in a band around the diagonal of an (m, k) matrix.
         i, j = np.mgrid[:m, :k]
         return np.where(np.abs(j - i * k / m) <= 4, rand(m, k), 0.0).astype(
             np.float32)
 
+    def operands(side, matrix, t_len, other, offset=0, minuend=False,
+                 ranges=True):
+        # matrix is (m, k) as it multiplies from the left; its transpose
+        # multiplies from the right.
+        a = matrix if side == "left" else np.ascontiguousarray(matrix.T)
+        op = (pm.band_operator(a, side, dev) if ranges
+              else torch.from_numpy(a).to(dev))
+        m, k = matrix.shape
+        if side == "left":
+            b = video(t_len, k, other, offset=offset)
+            sub = video(t_len, m, other) if minuend else None
+        else:
+            b = video(t_len, other, k, offset=offset)
+            sub = video(t_len, other, m) if minuend else None
+        return op, b, sub
+
     cases = []
     for side in ("left", "right"):
-        def operands(matrix, t_len, other, offset=0, minuend=False,
-                     ranges=True, side=side):
-            # matrix is (m, k) for the left product; its transpose's shape
-            # (k, n) multiplies from the right.
-            a = matrix if side == "left" else np.ascontiguousarray(matrix.T)
-            op = (pm.band_operator(a, side, dev) if ranges
-                  else torch.from_numpy(a).to(dev))
-            m, k = matrix.shape
-            if side == "left":
-                b = video(t_len, k, other, offset=offset)
-                sub = video(t_len, m, other) if minuend else None
-            else:
-                b = video(t_len, other, k, offset=offset)
-                sub = video(t_len, other, m) if minuend else None
-            return op, b, sub
-
         dense = rand(150, 200)
-        cases.append((f"{side}: dense matrix, no ranges", side,
-                      operands(dense, 3, 136, ranges=False)))
-        cases.append((f"{side}: dense matrix, ranges from its values", side,
-                      operands(dense, 3, 136)))
         holed = band(200, 300)
         holed[64:128] = 0.0
-        cases.append((f"{side}: an all-zero tile", side,
-                      operands(holed, 2, 72)))
-        cases.append((f"{side}: band, aligned widths, frames 4 bytes off",
-                      side, operands(band(96, 192), 2, 64, offset=1)))
-        for t_len, k, other in [(2, 5, 7), (3, 9, 15)]:
-            cases.append((f"{side}: ({t_len},{k},{other}), widths not "
-                          f"multiples of 4", side,
-                          operands(band((k + 1) // 2, k), t_len, other,
-                                   offset=3)))
-    cases.append(("right: minuend with ranges", "right",
-                  operands(band(160, 320), 3, 100, minuend=True)))
-    cases.append(("right: minuend, odd widths", "right",
-                  operands(band(7, 13), 2, 9, minuend=True)))
+        cases += [
+            ("dense matrix, no ranges", side,
+             operands(side, dense, 3, 136, ranges=False)),
+            ("dense matrix, ranges from its values", side,
+             operands(side, dense, 3, 136)),
+            ("an all-zero tile", side, operands(side, holed, 2, 72)),
+            ("band, aligned widths, frames 4 bytes off", side,
+             operands(side, band(96, 192), 2, 64, offset=1))]
+        cases.append(("more frames than a grid's z extent", side,
+                      operands(side, band(2, 4), 65_539, 6)))
+        cases += [
+            (f"({t_len},{k},{other}), widths not multiples of 4", side,
+             operands(side, band((k + 1) // 2, k), t_len, other, offset=3))
+            for t_len, k, other in [(2, 5, 7), (3, 9, 15)]]
+    cases += [
+        ("minuend with ranges", "right",
+         operands("right", band(160, 320), 3, 100, minuend=True)),
+        ("minuend, odd widths", "right",
+         operands("right", band(7, 13), 2, 9, minuend=True))]
     return cases
 
 
@@ -360,6 +381,15 @@ def phase_kernels_k3(dev):
                "matmul_ms": cuda_ms(lambda: pm.laplacian_band_levels_mm_ref(
                    v, levels, skip)),
                "k1_ms": cuda_ms(lambda: pc.laplacian_band_levels(
+                   v, levels, skip)),
+               # The chains are 5 to 28 launches, launched more slowly than
+               # the card runs them: replayed from a graph they show the
+               # device's own time.
+               "graph_ms": graph_ms(lambda: pm.laplacian_band_levels_mm(
+                   v, levels, skip)),
+               "matmul_graph_ms": graph_ms(
+                   lambda: pm.laplacian_band_levels_mm_ref(v, levels, skip)),
+               "k1_graph_ms": graph_ms(lambda: pc.laplacian_band_levels(
                    v, levels, skip))}
         emit({"phase": "kernel_parity", **row})
         check(row["max_abs_err"] <= K3_TOL,

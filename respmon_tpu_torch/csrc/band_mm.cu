@@ -86,7 +86,7 @@ __device__ __forceinline__ void wait_but() {
 // x as two TF32 numbers (float32 bit patterns whose low 13 bits are zero):
 // hi is x rounded to nearest, ties away from zero (half a TF32 ulp added to
 // the magnitude, the low bits cleared: what cvt.rna.tf32.f32 gives, in
-// integer instructions, which the card issues faster than conversions); lo
+// integer instructions, which the card runs faster than conversions); lo
 // is the rest x - hi, which float32 holds exactly, rounded the same way.
 template <bool kSplit>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {

@@ -44,8 +44,9 @@ from respmon_tpu_torch.ops.pyramid import _K5, pyramid_shapes
 LAUNCHES = {"band_left": 0, "band_right": 0}
 
 # Rows (left product) or columns (right product) of the shared matrix that
-# one thread block of csrc/band_mm.cu owns, and the multiple the ends of a
-# tile's range are rounded to (kBandTile and kRangeAlign there).
+# one thread block of csrc/band_mm.cu owns (kBandTile there), and the
+# multiple the ends of a tile's range are rounded to: one MMA step, and a
+# start the kernel's 16-byte copies can take.
 BAND_TILE = 64
 RANGE_ALIGN = 8
 
@@ -100,15 +101,16 @@ def _np_up_matrix(n: int, dst: int) -> np.ndarray:
     return U
 
 
-def slab_ranges(matrix: np.ndarray, side: str, tile: int = BAND_TILE,
-                align: int = RANGE_ALIGN) -> np.ndarray:
-    """For every ``tile`` rows (``side="left"``: the matrix is (m, k) and
-    multiplies from the left) or columns (``"right"``: (k, n)) of a shared
-    matrix, the range ``[k_lo, k_hi)`` of inner indices outside which the
-    tile is all zero, as an int32 array (tiles, 2).  The ends are rounded
-    outwards to multiples of ``align`` (``k_hi`` at most to ``k``), so no
-    nonzero is cut; an all-zero tile gets the empty range (0, 0) and a
-    dense matrix (0, k).  Read from the matrix's values, whatever made it."""
+def slab_ranges(matrix: np.ndarray, side: str) -> np.ndarray:
+    """For every ``BAND_TILE`` rows (``side="left"``: the matrix is (m, k)
+    and multiplies from the left) or columns (``"right"``: (k, n)) of a
+    shared matrix, the range ``[k_lo, k_hi)`` of inner indices outside
+    which the tile is all zero, as an int32 array (tiles, 2).  The ends are
+    rounded outwards to multiples of ``RANGE_ALIGN`` (``k_hi`` at most to
+    ``k``), so no nonzero is cut; an all-zero tile gets the empty range
+    (0, 0) and a dense matrix (0, k).  Read from the matrix's values,
+    whatever made it."""
+    tile, align = BAND_TILE, RANGE_ALIGN
     if side not in ("left", "right"):
         raise ValueError(f"side is 'left' or 'right', got {side!r}")
     if matrix.ndim != 2:

@@ -117,14 +117,14 @@ def test_band_kernels_match_matmul_and_the_stencil_kernels(dev, shape, levels,
         assert float((g - k).abs().max()) <= 1e-5
 
 
-N_BAND_CASES = 14
+N_BAND_CASES = 16
 
 
 @pytest.mark.parametrize("index", range(N_BAND_CASES))
 def test_band_kernels_corner_cases_match_matmul(dev, index):
     # The cases of chip_smoke.py: dense matrices with and without ranges,
-    # an all-zero tile, operands that 16-byte copies cannot take, the
-    # minuend form.  rtol 1e-5 of the result's largest magnitude: the
+    # an all-zero tile, operands that 16-byte copies cannot take, more
+    # frames than a grid's z extent, the minuend form.  rtol 1e-5 of the result's largest magnitude: the
     # kernel sums in another order and adds two TF32 terms per product.
     import chip_smoke
 
