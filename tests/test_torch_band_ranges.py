@@ -124,7 +124,7 @@ def test_walking_only_the_ranges_equals_the_dense_product(geometry, kind):
             (minuend - want).numpy(), rtol=0, atol=1e-6)
 
 
-@settings(max_examples=60, deadline=None)
+@settings(max_examples=60, deadline=None, database=None)
 @given(m=st.integers(1, 150), k=st.integers(1, 90), other=st.integers(1, 9),
        t_len=st.integers(1, 3), density=st.floats(0.0, 1.0),
        side=st.sampled_from(["left", "right"]), with_minuend=st.booleans(),
