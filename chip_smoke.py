@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``respmon_tpu_torch/csrc`` (one nvcc
-per source, into ``build/``), checks each against its plain
+per source, into ``build/``; the build line also holds what ptxas says of
+each kernel), checks each against its plain
 PyTorch version on the card (the band kernels also on dense, all-zero-tile,
 unaligned and minuend operands), and drives the whole-clip path
 ``process_clip`` at 640x480 in average mode and in flow mode (Shi-Tomasi
@@ -29,6 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 FPS = 10.0
 REPEATS = 20
+KERNEL_CALLS = 10   # calls in a row per reading of a kernel's time, see cuda_ms
 PYRAMID_CU = "respmon_tpu_torch/csrc/pyramid.cu"
 BAND_CU = "respmon_tpu_torch/csrc/band_mm.cu"
 PALLAS = "respmon_tpu/ops/pyramid_pallas.py"
@@ -67,6 +69,15 @@ def cuda_ms(fn, repeats: int = REPEATS, calls: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def kernel_times(kernel, plain) -> dict:
+    """A kernel's row of times: ``ms`` and ``plain_ms`` from readings of
+    ``KERNEL_CALLS`` calls in a row, and ``ms_one_call`` from readings of
+    one call each, which holds the host's time to make the call as well."""
+    return {"ms": cuda_ms(kernel, calls=KERNEL_CALLS),
+            "plain_ms": cuda_ms(plain, calls=KERNEL_CALLS),
+            "ms_one_call": cuda_ms(kernel)}
 
 
 def wall_s(fn):
@@ -151,8 +162,19 @@ def phase_build():
     def build(name):
         t0 = time.perf_counter()
         path = _build.build(name)
-        return {"library": str(path.relative_to(root)),
-                "seconds": time.perf_counter() - t0}
+        seconds = time.perf_counter() - t0
+        # What ptxas says of each kernel in the source: registers, shared
+        # memory, spills (a second compilation, to a cubin that is dropped).
+        flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+        said = subprocess.run(
+            [_build.find_nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
+             os.devnull, str(_build.CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        check(said.returncode == 0, f"nvcc -Xptxas -v: {said.stderr.strip()}")
+        return {"library": str(path.relative_to(root)), "seconds": seconds,
+                "ptxas": [ln.strip() for ln in said.stderr.splitlines()
+                          if "registers" in ln or "spill" in ln
+                          or "Compiling" in ln]}
 
     # One nvcc per source, both started together.
     names = ("pyramid", "band_mm")
@@ -237,8 +259,7 @@ def phase_kernels(dev):
          "replaces": f"{PALLAS}:275",
          "shape": list(v.shape),
          "max_abs_err": max_abs([pc.pyr_down(v)], [pyramid.pyr_down(v)]),
-         "ms": cuda_ms(lambda: pc.pyr_down(v)),
-         "plain_ms": cuda_ms(lambda: pyramid.pyr_down(v)),
+         **kernel_times(lambda: pc.pyr_down(v), lambda: pyramid.pyr_down(v)),
          **down_bound, "library_ms": None},
         {"name": "lap_level_f32", "route": "cuda", "source": PYRAMID_CU,
          "replaces": f"{PALLAS}:314",
@@ -246,8 +267,8 @@ def phase_kernels(dev):
          "max_abs_err": max_abs(
              [pc.lap_level(g4, g5)],
              [g4 - pyramid.pyr_up(g5, tuple(g4.shape[-2:]))]),
-         "ms": cuda_ms(lambda: pc.lap_level(g4, g5)),
-         "plain_ms": cuda_ms(
+         **kernel_times(
+             lambda: pc.lap_level(g4, g5),
              lambda: g4 - pyramid.pyr_up(g5, tuple(g4.shape[-2:]))),
          **lap_bound, "library_ms": None},
     ]
@@ -257,7 +278,6 @@ def phase_kernels(dev):
 
 
 K3_TOL = 1e-5   # summation order differs from torch.matmul's and from K1's
-BAND_CALLS = 10  # calls in a row per timing of a band kernel, see cuda_ms
 
 
 def band_parity_cases(dev):
@@ -432,10 +452,8 @@ def phase_kernels_k3(dev):
          "shape": [list(left_a.matrix.shape), list(left_b.shape)],
          "max_abs_err": max_abs([pm.band_left(left_a, left_b)],
                                 [torch.matmul(left_a.matrix, left_b)]),
-         "ms": cuda_ms(lambda: pm.band_left(left_a, left_b),
-                       calls=BAND_CALLS),
-         "plain_ms": cuda_ms(lambda: torch.matmul(left_a.matrix, left_b),
-                             calls=BAND_CALLS),
+         **kernel_times(lambda: pm.band_left(left_a, left_b),
+                        lambda: torch.matmul(left_a.matrix, left_b)),
          **product_bound(left_a.matrix, t_len, m, k, n, n)},
         {"name": "band_right_f32", "route": "cuda", "source": BAND_CU,
          "replaces": f"{PALLAS}:216",
@@ -443,12 +461,23 @@ def phase_kernels_k3(dev):
          "max_abs_err": max(err_minuend, max_abs(
              [pm.band_right(right_b, right_a)],
              [torch.matmul(right_b, right_a.matrix)])),
-         "ms": cuda_ms(lambda: pm.band_right(right_b, right_a),
-                       calls=BAND_CALLS),
-         "plain_ms": cuda_ms(lambda: torch.matmul(right_b, right_a.matrix),
-                             calls=BAND_CALLS),
+         **kernel_times(lambda: pm.band_right(right_b, right_a),
+                        lambda: torch.matmul(right_b, right_a.matrix)),
          **product_bound(right_a.matrix, t_len, m, n, n2, m)},
     ]
+    # What a call costs on the host: a product too small to occupy the
+    # card, called many times without waiting for it.
+    tiny = torch.rand((2, 8, 8), generator=gen, device=dev)
+    tiny_op = pm.band_operator(pm._np_down_matrix(8), "left", dev)
+    host_us = {}
+    for what, call in [
+            ("band_left", lambda: pm.band_left(tiny_op, tiny)),
+            ("torch.matmul", lambda: torch.matmul(tiny_op.matrix, tiny))]:
+        call()
+        _, seconds = wall_s(lambda: [call() for _ in range(2000)])
+        host_us[what] = seconds / 2000 * 1e6
+    emit({"phase": "host_us_per_call", **host_us})
+
     for kern in kernels:
         # torch.matmul is both the plain version and the one library call
         # that computes the same function.

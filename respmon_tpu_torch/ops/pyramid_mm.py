@@ -33,8 +33,9 @@ product; a bare tensor in place of an operator walks everything.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -135,14 +136,40 @@ def is_tf32_exact(matrix: np.ndarray) -> bool:
     return not bool((bits & 0x1FFF).any())
 
 
-class BandOperator(NamedTuple):
+@dataclasses.dataclass(frozen=True, eq=False)
+class BandOperator:
     """A shared matrix on its device, with what the host read from its
     values: the slab ranges of its tiles (int32 (tiles, 2), on the same
-    device) and whether its entries are exact in TF32."""
+    device) and whether its entries are exact in TF32.  The kernel trusts
+    the ranges, so they are checked here, once, where an operator is made
+    (this reads them back from the device): a launch checks nothing of
+    them and waits for nothing."""
     matrix: torch.Tensor
     side: str
     ranges: torch.Tensor
     tf32_exact: bool
+
+    def __post_init__(self):
+        if self.side not in ("left", "right"):
+            raise ValueError(f"side is 'left' or 'right', got {self.side!r}")
+        if self.matrix.ndim != 2:
+            raise ValueError(f"expected a matrix, got "
+                             f"{tuple(self.matrix.shape)}")
+        tiled, k = (self.matrix.shape if self.side == "left"
+                    else self.matrix.shape[::-1])
+        tiles = -(-tiled // BAND_TILE)
+        r = self.ranges
+        if (r.device != self.matrix.device or r.dtype != torch.int32
+                or tuple(r.shape) != (tiles, 2) or not r.is_contiguous()):
+            raise ValueError(f"ranges are not int32 ({tiles}, 2) beside the "
+                             f"matrix")
+        lo, hi = r.cpu().numpy().T
+        if not ((0 <= lo) & (lo <= hi) & (hi <= k)
+                & (lo % RANGE_ALIGN == 0)
+                & ((hi % RANGE_ALIGN == 0) | (hi == k))).all():
+            raise ValueError(f"ranges are not [k_lo, k_hi) within [0, {k}] "
+                             f"with ends on multiples of {RANGE_ALIGN} (or "
+                             f"k_hi == {k}): {r.tolist()}")
 
 
 def band_operator(matrix: np.ndarray, side: str,
@@ -219,13 +246,8 @@ def _unpack(a: Union[torch.Tensor, BandOperator], side: str, name: str):
     if a.side != side:
         raise ValueError(f"{name}: operator was made for the {a.side} "
                          f"product")
-    tiles = -(-a.matrix.shape[0 if side == "left" else 1] // BAND_TILE)
-    if (a.ranges.device != a.matrix.device or a.ranges.dtype != torch.int32
-            or tuple(a.ranges.shape) != (tiles, 2)
-            or not a.ranges.is_contiguous()):
-        raise ValueError(f"{name}: ranges are not int32 ({tiles}, 2) beside "
-                         f"the matrix")
-    return a.matrix, a.ranges.data_ptr(), tiles, int(a.tf32_exact)
+    return (a.matrix, a.ranges.data_ptr(), a.ranges.shape[0],
+            int(a.tf32_exact))
 
 
 def band_left(a: Union[torch.Tensor, BandOperator],

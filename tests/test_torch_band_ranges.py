@@ -9,6 +9,8 @@ numbers are emulated in plain PyTorch on the CPU and held to the dense
 Tolerance 1e-6 where sums run in another order; exact equality where the
 values are chosen so that every product and sum is exact in float32."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -177,9 +179,26 @@ def test_wrappers_reject_an_operator_of_the_other_side_or_foreign_ranges():
     with pytest.raises(ValueError, match="right product"):
         pyramid_mm.band_left(right, video)
     with pytest.raises(ValueError, match="ranges"):
-        pyramid_mm.band_left(left._replace(ranges=left.ranges[:1]), video)
+        dataclasses.replace(left, ranges=left.ranges[:1])
     with pytest.raises(ValueError, match="ranges"):
-        pyramid_mm.band_left(left._replace(ranges=left.ranges.long()), video)
+        dataclasses.replace(left, ranges=left.ranges.long())
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("bad", [[[0, 72], [0, 70]], [[4, 70], [0, 70]],
+                                 [[0, 70], [-8, 70]], [[16, 8], [0, 70]],
+                                 [[0, 70], [0, 60]]])
+def test_an_operator_takes_only_ranges_the_kernel_can_walk(side, bad):
+    # The kernel reads [k_lo, k_hi) of the inner dimension in 16-byte
+    # pieces and checks nothing: an end beyond k, a start off a multiple of
+    # RANGE_ALIGN, or an inverted pair never gets as far as a launch.
+    a = np.eye(70, dtype=np.float32)
+    op = pyramid_mm.band_operator(a, side, CPU)
+    assert op.ranges.tolist() == [[0, 64], [64, 70]]
+    dataclasses.replace(op, ranges=torch.tensor([[0, 70], [0, 70]],
+                                                dtype=torch.int32))
+    with pytest.raises(ValueError, match="ranges"):
+        dataclasses.replace(op, ranges=torch.tensor(bad, dtype=torch.int32))
 
 
 # -- the split of a float32 into two TF32 numbers --------------------------

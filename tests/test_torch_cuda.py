@@ -6,6 +6,8 @@ so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -o addopts="" --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -150,7 +152,7 @@ def test_band_kernels_with_ranges_equal_the_full_walk(dev):
     v = _video((3, 480, 640), dev)
     dh, dw_t, _, _ = pyramid_mm._operators(480, 640, 9, 4, v.device)
     half = pyramid_mm.band_left(dh[0], v)
-    bare = pyramid_mm.band_left(dh[0]._replace(ranges=torch.tensor(
+    bare = pyramid_mm.band_left(dataclasses.replace(dh[0], ranges=torch.tensor(
         [[0, 480]] * 4, dtype=torch.int32, device=dev)), v)
     assert float((half - bare).abs().max()) <= 1e-6
     got = pyramid_mm.band_right(half, dw_t[0])
@@ -177,7 +179,7 @@ def test_band_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         pyramid_mm.band_right(b, op)
     with pytest.raises(ValueError):
-        pyramid_mm.band_left(op._replace(ranges=op.ranges.cpu()), b)
+        dataclasses.replace(op, ranges=op.ranges.cpu())
 
 
 def test_flow_process_clip_card_matches_cpu(dev):
