@@ -6,8 +6,10 @@
 Builds the port's CUDA kernels from ``respmon_tpu_torch/csrc`` (one nvcc
 per source, into ``build/``; the build line also holds what ptxas says of
 each kernel), checks each against its plain
-PyTorch version on the card (the band kernels also on dense, all-zero-tile,
-unaligned and minuend operands), and drives the whole-clip path
+PyTorch version on the card (the stencil kernels bit for bit, along the
+launches their plan makes for each parity geometry; the band kernels also
+on dense, all-zero-tile, unaligned and minuend operands), and drives the
+whole-clip path
 ``process_clip`` at 640x480 in average mode and in flow mode (Shi-Tomasi
 corners, pyramidal LK, 2x2 PCA), one 640x480 calibration with the
 band-matrix pyramid (K3) in place of the stencil one (K1), and one 1080p
@@ -133,6 +135,14 @@ def read_launches() -> dict:
     return {**pyramid_cuda.LAUNCHES, **pyramid_mm.LAUNCHES}
 
 
+def check_k1_path(launches, what: str) -> None:
+    """One 640x480 ``locate`` ran K1 as its plan says: one A (d = 2), one
+    B, no lap_level_f32, and no kernel of the chain before them."""
+    check(launches["pyr_down_levels"] == 1 and launches["pyr_tail"] == 1
+          and launches["lap_level"] == 0 and "pyr_down" not in launches,
+          f"{what} launched A and B once each: {launches}")
+
+
 def quantize(clip):
     import numpy as np
 
@@ -201,7 +211,8 @@ def phase_widen(dev):
 
 def phase_kernels(dev):
     """Each stencil kernel and composition against its plain version on
-    the card: equal bit for bit, and timed."""
+    the card: equal bit for bit, and timed.  Returns the kernel rows and
+    the launches of the L9/S1 parity run, the path of ``lap_level_f32``."""
     import torch
 
     from respmon_tpu_torch.ops import pyramid, pyramid_cuda as pc
@@ -212,55 +223,100 @@ def phase_kernels(dev):
         return torch.rand(shape, generator=gen, device=dev)
 
     rows = []
+    lap_path = None
     for shape, levels, skip in [((128, 480, 640), 9, 4),
                                 ((128, 1080, 1920), 9, 4),
-                                ((3, 135, 192), 7, 3), ((2, 5, 7), 3, 0)]:
+                                ((3, 135, 192), 7, 3), ((2, 5, 7), 3, 0),
+                                ((4, 481, 643), 9, 4), ((4, 480, 640), 9, 1)]:
         v = video(shape)
-        err = max_abs(pc.laplacian_band_levels(v, levels, skip),
-                      pc.laplacian_band_levels_ref(v, levels, skip))
+        reset_launches()
+        got = pc.laplacian_band_levels(v, levels, skip)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if skip == 1:
+            lap_path = launches
+        err = max_abs(got, pc.laplacian_band_levels_ref(v, levels, skip))
+        del got
         rows.append({"op": "laplacian_band_levels", "shape": shape,
                      "levels": levels, "skip": skip, "max_abs_err": err,
+                     "plan": pc.plan(*shape[1:], levels, skip)._asdict(),
+                     "launches": launches,
                      "ms": cuda_ms(lambda: pc.laplacian_band_levels(
+                         v, levels, skip), calls=KERNEL_CALLS),
+                     # The chain's device time without the host's.
+                     "graph_ms": graph_ms(lambda: pc.laplacian_band_levels(
                          v, levels, skip)),
                      "plain_ms": cuda_ms(lambda: pc.laplacian_band_levels_ref(
-                         v, levels, skip))})
+                         v, levels, skip), calls=KERNEL_CALLS)})
         del v
     for shape in [(8, 1080, 1920), (2, 135, 192)]:
         v = video(shape)
-        for s1 in (1, 2):
+        for s1 in (1, 2, 3):
             err = max_abs([pc.gauss_level(v, s1)],
                           [pc.gauss_level_ref(v, s1)])
             rows.append({"op": "gauss_level", "shape": shape, "s1": s1,
                          "max_abs_err": err,
-                         "ms": cuda_ms(lambda: pc.gauss_level(v, s1)),
+                         "ms": cuda_ms(lambda: pc.gauss_level(v, s1),
+                                       calls=KERNEL_CALLS),
                          "plain_ms": cuda_ms(
-                             lambda: pc.gauss_level_ref(v, s1))})
+                             lambda: pc.gauss_level_ref(v, s1),
+                             calls=KERNEL_CALLS)})
         del v
     for row in rows:
         emit({"phase": "kernel_parity", **row})
         check(row["max_abs_err"] == 0.0, f"{row['op']} {row['shape']} "
               f"equals its plain version bit for bit")
+    check(lap_path is not None and lap_path["lap_level"] > 0,
+          f"the L9/S1 chain took the lap_level_f32 route: {lap_path}")
 
-    # The two kernels at the shapes the 640x480 path gives them.  No one
-    # PyTorch call computes either function (a strided convolution needs a
-    # reflect pad before it, pyrUp two phases), so there is no library time.
+    # The kernels at the shapes the 640x480 path gives them (lap_level_f32
+    # at the kept level it would take there).  No one PyTorch call computes
+    # any of these functions (a strided convolution needs a reflect pad
+    # before it, pyrUp two phases), so there is no library time.
     v = video((128, 480, 640))
-    g = pyramid.gaussian_pyramid(v, 6)
-    g4, g5 = g[4].contiguous(), g[5].contiguous()
-    t_len, h, w = v.shape
-    ho, wo = (h + 1) // 2, (w + 1) // 2
-    # pyr_down: 5 column sums of 5 taps and one row sum, 9 operations each.
-    down_bound = bound(4 * t_len * (h * w + ho * wo), 54 * t_len * ho * wo)
-    # lap_level: three H phases, one W phase (<= 4 operations each), one
-    # subtraction per output.
+    g = pyramid.gaussian_pyramid(v, 9)
+    g2, g4, g5 = g[2].contiguous(), g[4].contiguous(), g[5].contiguous()
+    t_len = v.shape[0]
+
+    def elems(level):
+        return t_len * g[level].shape[1] * g[level].shape[2]
+
+    # A pyrDown output: 5 column sums of 5 taps and one row sum, 9
+    # operations each.  A Laplacian output: three H phases, one W phase
+    # (<= 4 operations each), one subtraction.
+    def down_bound(d):
+        return bound(4 * (elems(0) + elems(d)),
+                     54 * sum(elems(lvl) for lvl in range(1, d + 1)))
+
+    tail_bound = bound(4 * (elems(2) + sum(elems(lvl) for lvl in range(4, 8))),
+                       54 * sum(elems(lvl) for lvl in range(3, 9))
+                       + 17 * sum(elems(lvl) for lvl in range(4, 8)))
     lap_bound = bound(4 * (2 * g4.numel() + g5.numel()), 17 * g4.numel())
+
+    # A with d = 2 is K1's first launch there; with d = 1 it is K2 at
+    # s1 = 1.
+    def down_row(d, replaces):
+        return {"name": "pyr_down_levels_f32", "route": "cuda",
+                "source": PYRAMID_CU, "replaces": f"{PALLAS}:{replaces}",
+                "d": d,
+                "shape": list(v.shape),
+                "max_abs_err": max_abs([pc.pyr_down(v, d)], [g[d]]),
+                **kernel_times(lambda: pc.pyr_down(v, d),
+                               lambda: pc.gauss_level_ref(v, d)),
+                **down_bound(d), "library_ms": None}
+
     kernels = [
-        {"name": "pyr_down_f32", "route": "cuda", "source": PYRAMID_CU,
-         "replaces": f"{PALLAS}:275",
-         "shape": list(v.shape),
-         "max_abs_err": max_abs([pc.pyr_down(v)], [pyramid.pyr_down(v)]),
-         **kernel_times(lambda: pc.pyr_down(v), lambda: pyramid.pyr_down(v)),
-         **down_bound, "library_ms": None},
+        down_row(2, 314),
+        down_row(1, 275),
+        {"name": "pyr_tail_f32", "route": "cuda", "source": PYRAMID_CU,
+         "replaces": f"{PALLAS}:314", "shape": list(g2.shape),
+         "levels": 7, "first_kept": 2,
+         "max_abs_err": max_abs(pc.pyr_tail(g2, 7, 2), [
+             g[lvl] - pyramid.pyr_up(g[lvl + 1], tuple(g[lvl].shape[-2:]))
+             for lvl in range(4, 8)]),
+         **kernel_times(lambda: pc.pyr_tail(g2, 7, 2),
+                        lambda: pc.laplacian_band_levels_ref(g2, 7, 2)),
+         **tail_bound, "library_ms": None},
         {"name": "lap_level_f32", "route": "cuda", "source": PYRAMID_CU,
          "replaces": f"{PALLAS}:314",
          "shape": list(g4.shape),
@@ -274,7 +330,7 @@ def phase_kernels(dev):
     ]
     for k in kernels:
         check(k["max_abs_err"] == 0.0, f"{k['name']} equals its plain version")
-    return kernels
+    return kernels, lap_path
 
 
 K3_TOL = 1e-5   # summation order differs from torch.matmul's and from K1's
@@ -614,8 +670,7 @@ def phase_slice(frames):
     reset_launches()
     res, first_s = wall_s(lambda: scan.process_clip(frames, FPS, cfg))
     launches = read_launches()
-    check(launches["pyr_down"] > 0 and launches["lap_level"] > 0,
-          f"the path launched both kernels: {launches}")
+    check_k1_path(launches, "the average slice")
     with pyramid_route():
         plain = scan.process_clip(frames, FPS, cfg)
     check(read_launches() == launches, "plain run launched nothing")
@@ -662,7 +717,8 @@ def phase_k3_locate(frames, roi):
     launches = read_launches()
     check(launches["band_left"] > 0 and launches["band_right"] > 0,
           f"the K3 calibration launched both band kernels: {launches}")
-    check(launches["pyr_down"] == 0 and launches["lap_level"] == 0,
+    check(launches["pyr_down_levels"] == 0 and launches["pyr_tail"] == 0
+          and launches["lap_level"] == 0,
           "the K3 calibration launched no stencil kernel")
     check(bool(res.found), "K3 locate found an ROI")
     check(tuple(_bbox(res)) == tuple(roi),
@@ -699,8 +755,7 @@ def phase_flow_slice(frames, roi):
     reset_launches()
     res, first_s = wall_s(lambda: scan.process_clip(frames, FPS, cfg))
     launches = read_launches()
-    check(launches["pyr_down"] > 0 and launches["lap_level"] > 0,
-          f"the flow path launched both pyramid kernels: {launches}")
+    check_k1_path(launches, "the flow slice")
     check(res.found and res.roi == tuple(roi),
           f"flow ROI {res.roi} equals the average slice's {roi}")
     check(res.error_frame is None, f"no tracking loss ({res.error_frame})")
@@ -838,7 +893,12 @@ def phase_1080p(dev):
     frames = torch.from_numpy(quantize(clip)).to(dev)
     del clip
 
+    reset_launches()
     res = evm.locate(frames, FPS, cfg)
+    launches = read_launches()
+    check(launches["pyr_down_levels"] == 1 and launches["pyr_tail"] == 1
+          and launches["lap_level"] == 0,
+          f"the 1080p locate launched A (d = 3) and B once each: {launches}")
     check(bool(res.found), "1080p locate found an ROI")
     with pyramid_route():
         plain = evm.locate(frames, FPS, cfg)
@@ -847,8 +907,10 @@ def phase_1080p(dev):
     with pyramid_route():
         _, plain_s = wall_s(lambda: evm.locate(frames, FPS, cfg).x)
     emit({"phase": "locate_1080p", "frames": list(frames.shape),
-          "roi": _bbox(res), "locate_s": locate_s, "plain_locate_s": plain_s,
+          "roi": _bbox(res), "launches": launches, "locate_s": locate_s,
+          "plain_locate_s": plain_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
 
 
 def main() -> int:
@@ -864,7 +926,8 @@ def main() -> int:
     card = phase_device()
     phase_build()
     phase_widen(dev)
-    kernels = phase_kernels(dev) + phase_kernels_k3(dev)
+    kernels, lap_path = phase_kernels(dev)
+    kernels += phase_kernels_k3(dev)
     phase_small_cross_check(dev)
     frames = slice_frames(dev)
     roi, avg_launches = phase_slice(frames)
@@ -872,19 +935,28 @@ def main() -> int:
     flow_launches = phase_flow_slice(frames, roi)
     phase_flow_profile(frames)
     del frames
-    phase_1080p(dev)
+    launches_1080p = phase_1080p(dev)
 
     # Each path was driven with every count at 0 just before it and read
     # just after.  ``launches`` is the count on the kernel's own path: the
-    # flow slice for the stencil kernels, the K3 calibration for the band
-    # kernels.
+    # flow slice for A and B, the L9/S1 parity run for lap_level_f32 (no
+    # default configuration takes its route), the K3 calibration for the
+    # band kernels.
+    paths = {"slice_640x480": avg_launches, "flow_640x480": flow_launches,
+             "k3_locate_640x480": k3_launches,
+             "k1_parity_4x480x640_l9s1": lap_path,
+             "locate_1080p": launches_1080p}
+    own_path = {"pyr_down_levels": "flow_640x480",
+                "pyr_tail": "flow_640x480",
+                "lap_level": "k1_parity_4x480x640_l9s1",
+                "band_left": "k3_locate_640x480",
+                "band_right": "k3_locate_640x480"}
     for k in kernels:
         key = k["name"].removesuffix("_f32")
-        k["launches_by_path"] = {"slice_640x480": avg_launches[key],
-                                 "flow_640x480": flow_launches[key],
-                                 "k3_locate_640x480": k3_launches[key]}
-        k["launches"] = (k3_launches if key.startswith("band")
-                         else flow_launches)[key]
+        k["launches_by_path"] = {name: counts[key]
+                                 for name, counts in paths.items()}
+        k["path"] = own_path[key]
+        k["launches"] = paths[own_path[key]][key]
         check(k["launches"] > 0, f"{k['name']} launched on its path")
     emit({"kernels": kernels})
     print(card, flush=True)

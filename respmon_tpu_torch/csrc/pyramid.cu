@@ -1,36 +1,67 @@
 // Pyramid kernels of the EVM calibration, hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of respmon_tpu/ops/pyramid_pallas.py:
-//   - laplacian_band_levels (K1, :294-321): the per-frame Gaussian chain and
-//     the kept Laplacian levels. Here: levels-1 launches of pyr_down_f32, then
-//     one lap_level_f32 per kept level (composed in ops/pyramid_cuda.py).
-//   - gauss_level_tiled (K2, :244-291): a Gaussian level of a frame too large
-//     for TPU VMEM, computed over halo'd W-strips. Hopper tiles by thread
-//     block, so there are no strips: K2 is s1 launches of pyr_down_f32.
+//   - laplacian_band_levels (K1, :295-321, body _make_kernel :90-99): the
+//     whole Gaussian chain of a frame kept in VMEM, only the kept Laplacian
+//     levels written out;
+//   - gauss_level_tiled (K2, :245-291, strip kernel :269-273): a Gaussian
+//     level of frames too large for VMEM, over halo'd W-strips.
+// Here both are two kernels, composed by the plan of ops/pyramid_cuda.py:
+//   pyr_down_levels_f32 (A): d = 1..3 pyrDowns fused per output tile;
+//   pyr_tail_f32 (B): from a level whose remaining pyramid fits one block's
+//     shared memory, every further level of a frame and the kept Laplacian
+//     levels, one block per frame;
+//   lap_level_f32: one kept level g - pyrUp(gn) from two levels in device
+//     memory, for the kept levels above B's (a route chosen by the shapes:
+//     no default configuration takes it).
+// At 640x480 L9/S4 the chain is one A (d = 2) and one B: two launches.
 //
-// Bound: device memory. At 640x480x128 f32 the first pyrDown reads 157 MB and
-// writes 39 MB; the rest of the chain and the kept levels add about a third.
-// Each thread computes one output pixel from global memory (the 5x5 source
-// footprint of neighbouring threads overlaps, and L1/L2 absorb the reuse).
-// Tiling through shared memory, or fusing the whole chain per tile so that
-// the intermediate levels never reach device memory, is later work.
+// Bound: device memory. At (128, 480, 640) A reads 157 MB and writes the
+// 10 MB of level 2; every other byte of the chain (B's 10 MB in, 0.8 MB of
+// kept levels out) is small beside it. The design keeps every level that
+// is not an output on the chip:
+// - A's block owns one tile of level d and walks frames t, t + gridDim.z,
+//   ...: it stages the frame's clamped level-0 window in shared memory by
+//   cp.async (16-byte copies where the width and pointer allow them, else
+//   4-byte ones), the next frame's window in flight while the current one
+//   is computed. Each level is an H pass into a scratch buffer, then a W
+//   pass back into the stage buffer, whose level below is spent by then;
+//   the last W pass writes level d to device memory. A level-d tile of n
+//   rows reads 2^d (n + 3) - 3 rows of level 0: the halo is re-read by the
+//   neighbouring tile, mostly from L2.
+// - B reads its frame's level once by cp.async, computes each further level
+//   from five column sums read out of shared memory (no scratch), and
+//   writes each kept g[l] - pyrUp(g[l+1]) straight to device memory.
+//
+// Borders: reflect-101 at every level (periodic for n = 1, 2). A tile's
+// windows are the rows and columns its outputs need, level by level,
+// clamped to the level; every reflected index lies inside them, so a read
+// of level l at index i is a read of reflect101(i, n_l) in the window.
+// pyrUp reflects at the front and replicates at the back.
 //
 // Numerics: every intermediate is rounded exactly where the plain PyTorch
 // version (ops/pyramid.py) rounds: the H pass first, then the W pass, each
 // `acc = acc + x*w` in tap order; pyrUp's even phase ((a + 6b) + c) * 0.125
-// and odd phase (b + c) * 0.5. The _rn intrinsics (and -fmad=false at build)
-// keep nvcc from contracting a multiply-add into an FMA, so the kernels
-// equal the plain version on the card bit for bit.
+// and odd phase (b + c) * 0.5, then the subtraction. The _rn intrinsics
+// (and -fmad=false at build) keep nvcc from contracting a multiply-add into
+// an FMA, so the kernels equal the plain version on the card bit for bit.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
+constexpr int kThreads = kBlockX * kBlockY;
 constexpr int kMaxGridZ = 65535;
+constexpr int kMaxDevices = 64;
+constexpr int kTailThreads = 1024;
+constexpr int kMaxTailLevels = 32;
+constexpr int kTailBudgetBytes = 200 * 1024;  // of the 227 KB a block may have
 
 __device__ __forceinline__ int reflect101(int i, int n) {
+  if (i >= 0 && i < n) return i;
   if (n == 1) return 0;
   const int period = 2 * (n - 1);
   int m = i % period;
@@ -46,6 +77,23 @@ __device__ __forceinline__ float tap5(float x0, float x1, float x2, float x3,
   acc = __fadd_rn(acc, __fmul_rn(x2, 0.375f));
   acc = __fadd_rn(acc, __fmul_rn(x3, 0.25f));
   return __fadd_rn(acc, __fmul_rn(x4, 0.0625f));
+}
+
+// pyrDown output (i, j) of the (h, w) level at src: five column sums over
+// the H taps, then the W taps.
+__device__ __forceinline__ float down_at(const float* src, int h, int w,
+                                         int i, int j) {
+  int rows[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) rows[k] = reflect101(2 * i - 2 + k, h) * w;
+  float s[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const float* col = src + reflect101(2 * j - 2 + k, w);
+    s[k] = tap5(col[rows[0]], col[rows[1]], col[rows[2]], col[rows[3]],
+                col[rows[4]]);
+  }
+  return tap5(s[0], s[1], s[2], s[3], s[4]);
 }
 
 // One pyrUp phase on source samples (prev, cur, next) for output index i.
@@ -68,36 +116,329 @@ __device__ __forceinline__ void up_sources(int i, int n, int* p, int* c,
   *q = s + 1 < n ? s + 1 : n - 1;
 }
 
-__global__ void pyr_down_kernel(const float* __restrict__ src,
-                                float* __restrict__ dst, int T, int H, int W,
-                                int Ho, int Wo) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= Ho || j >= Wo) return;
-  int rows[5], cols[5];
+// g(i, j) - pyrUp(gn)(i, j) for a level g of width w and the (hn, wn)
+// level gn above it, both frames in one plane.
+__device__ __forceinline__ float lap_at(const float* g, int w, const float* gn,
+                                        int hn, int wn, int i, int j) {
+  int rp, rc, rq, cp, cc, cq;
+  up_sources(i, hn, &rp, &rc, &rq);
+  up_sources(j, wn, &cp, &cc, &cq);
+  const float* sp = gn + rp * wn;
+  const float* sc = gn + rc * wn;
+  const float* sq = gn + rq * wn;
+  // H phase at the (up to) three source columns the W phase reads.
+  const float up_p = up_phase(i, sp[cp], sc[cp], sq[cp]);
+  const float up_c = up_phase(i, sp[cc], sc[cc], sq[cc]);
+  const float up_q = up_phase(i, sp[cq], sc[cq], sq[cq]);
+  return __fsub_rn(g[i * w + j], up_phase(j, up_p, up_c, up_q));
+}
+
+// Asynchronous copies global -> shared of 16 or 4 bytes.
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's copy groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void wait_but() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// A: d fused pyrDowns per output tile.
+
+// The tile of level D that one block owns, rows x cols.
+template <int D>
+struct Tile;
+template <>
+struct Tile<1> {
+  static constexpr int rows = 32, cols = 64;
+};
+template <>
+struct Tile<2> {
+  static constexpr int rows = 16, cols = 32;
+};
+template <>
+struct Tile<3> {
+  static constexpr int rows = 8, cols = 16;
+};
+
+// Extent, k levels down, of the window that n outputs need: n -> 2n + 3.
+constexpr int window(int n, int k) {
+  return k == 0 ? n : 2 * window(n, k - 1) + 3;
+}
+
+// Shared memory of A in floats: two stage buffers (a frame's level-0
+// window, widened by up to 3 columns at each end for 16-byte copies), and
+// the H pass's scratch (largest at the first level).
+template <int D>
+struct Footprint {
+  static constexpr int stage_cols = (window(Tile<D>::cols, D) + 6 + 3) / 4 * 4;
+  static constexpr int stage = window(Tile<D>::rows, D) * stage_cols;
+  static constexpr int scratch =
+      window(Tile<D>::rows, D - 1) * window(Tile<D>::cols, D);
+  static constexpr int bytes = (2 * stage + scratch) * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+pyr_down_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                       int T, int H, int W, bool wide) {
+  extern __shared__ __align__(16) float smem[];
+  float* const scratch = smem + 2 * Footprint<D>::stage;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kBlockX + tx;
+
+  // Level sizes, and per level the rows [r_lo, r_hi] and columns
+  // [c_lo, c_hi] (inclusive, clamped to the level) that the tile needs.
+  int h[D + 1], w[D + 1], r_lo[D + 1], r_hi[D + 1], c_lo[D + 1], c_hi[D + 1];
+  h[0] = H;
+  w[0] = W;
 #pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    rows[k] = reflect101(2 * i - 2 + k, H);
-    cols[k] = reflect101(2 * j - 2 + k, W);
+  for (int l = 0; l < D; ++l) {
+    h[l + 1] = (h[l] + 1) / 2;
+    w[l + 1] = (w[l] + 1) / 2;
   }
-  const long long in_plane = (long long)H * W;
-  const long long out_plane = (long long)Ho * Wo;
-  for (int t = blockIdx.z; t < T; t += gridDim.z) {
-    const float* s = src + t * in_plane;
-    float h[5];
+  r_lo[D] = blockIdx.y * Tile<D>::rows;
+  r_hi[D] = min(r_lo[D] + Tile<D>::rows, h[D]) - 1;
+  c_lo[D] = blockIdx.x * Tile<D>::cols;
+  c_hi[D] = min(c_lo[D] + Tile<D>::cols, w[D]) - 1;
 #pragma unroll
-    for (int c = 0; c < 5; ++c) {
-      const float* col = s + cols[c];
-      h[c] = tap5(col[(long long)rows[0] * W], col[(long long)rows[1] * W],
-                  col[(long long)rows[2] * W], col[(long long)rows[3] * W],
-                  col[(long long)rows[4] * W]);
+  for (int l = D - 1; l >= 0; --l) {
+    r_lo[l] = max(2 * r_lo[l + 1] - 2, 0);
+    r_hi[l] = min(2 * r_hi[l + 1] + 2, h[l] - 1);
+    c_lo[l] = max(2 * c_lo[l + 1] - 2, 0);
+    c_hi[l] = min(2 * c_hi[l + 1] + 2, w[l] - 1);
+  }
+  // The staged columns [c0, c1): for 16-byte copies widened to multiples
+  // of 4 (W is one then).
+  const int c0 = wide ? c_lo[0] & ~3 : c_lo[0];
+  const int c1 = wide ? min((c_hi[0] + 4) & ~3, W) : c_hi[0] + 1;
+  const int rows0 = r_hi[0] - r_lo[0] + 1;
+  const int cols0 = c1 - c0;
+  const long long in_plane = (long long)H * W;
+  const long long out_plane = (long long)h[D] * w[D];
+
+  auto fill = [&](float* stage, int t) {
+    const float* f = src + t * in_plane + (long long)r_lo[0] * W + c0;
+    if (wide) {
+      const int q = cols0 / 4;
+      for (int e = tid; e < rows0 * q; e += kThreads) {
+        const int r = e / q, c = (e - r * q) * 4;
+        copy16(stage + r * cols0 + c, f + (long long)r * W + c);
+      }
+    } else {
+      for (int e = tid; e < rows0 * cols0; e += kThreads) {
+        const int r = e / cols0, c = e - r * cols0;
+        copy4(stage + r * cols0 + c, f + (long long)r * W + c);
+      }
     }
-    dst[t * out_plane + (long long)i * Wo + j] =
-        tap5(h[0], h[1], h[2], h[3], h[4]);
+  };
+
+  // Levels 1..D of frame t from its level-0 window in stage.
+  auto levels = [&](float* stage, int t) {
+    int stride = cols0, origin = c0;  // the window of level l in stage
+#pragma unroll
+    for (int l = 0; l < D; ++l) {
+      const int n_rows = r_hi[l + 1] - r_lo[l + 1] + 1;
+      const int n_cols = c_hi[l] - c_lo[l] + 1;
+      // H pass: scratch[i][c] over the needed columns c of level l.
+      for (int i = ty; i < n_rows; i += kBlockY) {
+        int rows[5];
+#pragma unroll
+        for (int k = 0; k < 5; ++k)
+          rows[k] = (reflect101(2 * (r_lo[l + 1] + i) - 2 + k, h[l]) -
+                     r_lo[l]) * stride;
+        const float* base = stage + (c_lo[l] - origin);
+        for (int c = tx; c < n_cols; c += kBlockX) {
+          const float* col = base + c;
+          scratch[i * n_cols + c] = tap5(col[rows[0]], col[rows[1]],
+                                         col[rows[2]], col[rows[3]],
+                                         col[rows[4]]);
+        }
+      }
+      __syncthreads();
+      // W pass: into stage (level l is spent), or for the last level out.
+      const int n_out = c_hi[l + 1] - c_lo[l + 1] + 1;
+      float* const out_frame = dst + t * out_plane;
+      for (int i = ty; i < n_rows; i += kBlockY) {
+        const float* row = scratch + i * n_cols;
+        for (int j = tx; j < n_out; j += kBlockX) {
+          const int jj = 2 * (c_lo[l + 1] + j) - 2;
+          float x[5];
+#pragma unroll
+          for (int k = 0; k < 5; ++k)
+            x[k] = row[reflect101(jj + k, w[l]) - c_lo[l]];
+          const float v = tap5(x[0], x[1], x[2], x[3], x[4]);
+          if (l + 1 == D) {
+            out_frame[(long long)(r_lo[D] + i) * w[D] + c_lo[D] + j] = v;
+          } else {
+            stage[i * n_out + j] = v;
+          }
+        }
+      }
+      __syncthreads();
+      stride = n_out;
+      origin = c_lo[l + 1];
+    }
+  };
+
+  // Two stage buffers: frame t is computed while the block's next frame
+  // lands. Every step commits a group, empty or not, so that "all but the
+  // newest group landed" means "frame t landed".
+  float* const stages[2] = {smem, smem + Footprint<D>::stage};
+  int t = blockIdx.z;
+  if (t < T) fill(stages[0], t);
+  commit();
+  for (int k = 0; t < T; ++k, t += gridDim.z) {
+    const int next = t + gridDim.z;
+    if (next < T) fill(stages[(k + 1) & 1], next);
+    commit();
+    wait_but<1>();
+    __syncthreads();
+    levels(stages[k & 1], t);  // ends in a barrier: the buffers are free
+  }
+  wait_but<0>();
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// Blocks of `kernel` that fit the card at once, with the shared memory it
+// may ask for set to smem_bytes; both once per device.
+struct Residency {
+  int blocks[kMaxDevices] = {};
+};
+
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, int smem_bytes,
+                            Residency& cache, int* blocks) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && cache.blocks[device] > 0) {
+    *blocks = cache.blocks[device];
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      smem_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  *blocks = (per_sm > 0 ? per_sm : 1) * sms;
+  if (device < kMaxDevices) cache.blocks[device] = *blocks;
+  return cudaSuccess;
+}
+
+template <int D>
+int launch_down(const float* src, float* dst, int T, int H, int W,
+                void* stream) {
+  static Residency cache;
+  int blocks = 0;
+  cudaError_t err = resident_blocks(pyr_down_levels_kernel<D>, kThreads,
+                                    Footprint<D>::bytes, cache, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int h = H, w = W;
+  for (int l = 0; l < D; ++l) {
+    h = (h + 1) / 2;
+    w = (w + 1) / 2;
+  }
+  const int tiles_x = (w + Tile<D>::cols - 1) / Tile<D>::cols;
+  const int tiles_y = (h + Tile<D>::rows - 1) / Tile<D>::rows;
+  // As many frame groups as keep every block resident at once; each block
+  // walks its tile through T / groups frames.
+  long long groups = blocks / ((long long)tiles_x * tiles_y);
+  if (groups < 1) groups = 1;
+  if (groups > T) groups = T;
+  if (groups > kMaxGridZ) groups = kMaxGridZ;
+  const bool wide = W % 4 == 0 && aligned(src, 16);
+  pyr_down_levels_kernel<D>
+      <<<dim3(tiles_x, tiles_y, static_cast<int>(groups)),
+         dim3(kBlockX, kBlockY), Footprint<D>::bytes,
+         static_cast<cudaStream_t>(stream)>>>(src, dst, T, H, W, wide);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// B: the tail of the pyramid, one block per frame, all in shared memory.
+
+struct TailOutputs {
+  float* level[kMaxTailLevels];  // (T, h_l, w_l) for the kept levels l
+};
+
+__global__ void __launch_bounds__(kTailThreads)
+pyr_tail_kernel(const float* __restrict__ src, TailOutputs out, int T, int H,
+                int W, int n_levels, int first_kept, bool wide) {
+  // Levels 0..n_levels-1 of the frame, packed one after the other.
+  extern __shared__ __align__(16) float pyr[];
+  const int tid = threadIdx.x;
+  const int plane = H * W;
+  for (int t = blockIdx.x; t < T; t += gridDim.x) {
+    const float* f = src + (long long)t * plane;
+    if (wide) {
+      for (int e = 4 * tid; e < plane; e += 4 * kTailThreads)
+        copy16(pyr + e, f + e);
+    } else {
+      for (int e = tid; e < plane; e += kTailThreads) copy4(pyr + e, f + e);
+    }
+    commit();
+    wait_but<0>();
+    __syncthreads();
+
+    int h = H, w = W, off = 0;
+    for (int l = 1; l < n_levels; ++l) {
+      const int hn = (h + 1) / 2, wn = (w + 1) / 2, off_n = off + h * w;
+      for (int e = tid; e < hn * wn; e += kTailThreads) {
+        const int i = e / wn, j = e - i * wn;
+        pyr[off_n + e] = down_at(pyr + off, h, w, i, j);
+      }
+      __syncthreads();
+      h = hn;
+      w = wn;
+      off = off_n;
+    }
+
+    h = H;
+    w = W;
+    off = 0;
+    for (int l = 0; l + 1 < n_levels; ++l) {
+      const int hn = (h + 1) / 2, wn = (w + 1) / 2, off_n = off + h * w;
+      if (l >= first_kept) {
+        float* o = out.level[l] + (long long)t * h * w;
+        for (int e = tid; e < h * w; e += kTailThreads) {
+          const int i = e / w, j = e - i * w;
+          o[e] = lap_at(pyr + off, w, pyr + off_n, hn, wn, i, j);
+        }
+      }
+      h = hn;
+      w = wn;
+      off = off_n;
+    }
+    __syncthreads();  // the next frame's copies overwrite level 0
   }
 }
 
-// out = g - pyrUp(gn, (h, w)); g is (T, h, w), gn is (T, hn, wn).
+// ---------------------------------------------------------------------------
+// lap_level_f32: out = g - pyrUp(gn, (h, w)); g is (T, h, w), gn (T, hn, wn).
+
 __global__ void lap_level_kernel(const float* __restrict__ g,
                                  const float* __restrict__ gn,
                                  float* __restrict__ out, int T, int h, int w,
@@ -105,49 +446,75 @@ __global__ void lap_level_kernel(const float* __restrict__ g,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= h || j >= w) return;
-  int rp, rc, rq, cp, cc, cq;
-  up_sources(i, hn, &rp, &rc, &rq);
-  up_sources(j, wn, &cp, &cc, &cq);
   const long long plane = (long long)h * w;
   const long long plane_n = (long long)hn * wn;
   for (int t = blockIdx.z; t < T; t += gridDim.z) {
-    const float* s = gn + t * plane_n;
-    const float* sp = s + (long long)rp * wn;
-    const float* sc = s + (long long)rc * wn;
-    const float* sq = s + (long long)rq * wn;
-    // H phase at the (up to) three source columns the W phase reads.
-    const float up_p = up_phase(i, sp[cp], sc[cp], sq[cp]);
-    const float up_c = up_phase(i, sp[cc], sc[cc], sq[cc]);
-    const float up_q = up_phase(i, sp[cq], sc[cq], sq[cq]);
-    const float up = up_phase(j, up_p, up_c, up_q);
-    const long long o = t * plane + (long long)i * w + j;
-    out[o] = __fsub_rn(g[o], up);
+    out[t * plane + (long long)i * w + j] =
+        lap_at(g + t * plane, w, gn + t * plane_n, hn, wn, i, j);
   }
-}
-
-dim3 grid_for(int rows, int cols, int T) {
-  return dim3((cols + kBlockX - 1) / kBlockX, (rows + kBlockY - 1) / kBlockY,
-              T < kMaxGridZ ? T : kMaxGridZ);
 }
 
 }  // namespace
 
 // C interface (loaded with ctypes). Each returns the cudaError_t of its
 // launch; the caller allocates every buffer and passes its current stream.
-extern "C" int pyr_down_f32(const float* src, float* dst, int T, int H, int W,
+
+// dst = pyrDown applied d times (1 <= d <= 3) to the (T, H, W) video src.
+extern "C" int pyr_down_levels_f32(const float* src, float* dst, int T, int H,
+                                   int W, int d, void* stream) {
+  switch (d) {
+    case 1:
+      return launch_down<1>(src, dst, T, H, W, stream);
+    case 2:
+      return launch_down<2>(src, dst, T, H, W, stream);
+    case 3:
+      return launch_down<3>(src, dst, T, H, W, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The Laplacian levels [first_kept, n_levels - 2] of the n_levels-level
+// pyramid whose level 0 is the (T, H, W) video src: outs[l] is level l's
+// (T, h_l, w_l) output for those l (host array of n_levels pointers; the
+// others are not read). The whole pyramid of a frame must fit
+// kTailBudgetBytes.
+extern "C" int pyr_tail_f32(const float* src, float* const* outs, int T,
+                            int H, int W, int n_levels, int first_kept,
                             void* stream) {
-  const int Ho = (H + 1) / 2;
-  const int Wo = (W + 1) / 2;
-  pyr_down_kernel<<<grid_for(Ho, Wo, T), dim3(kBlockX, kBlockY), 0,
-                    static_cast<cudaStream_t>(stream)>>>(src, dst, T, H, W, Ho,
-                                                         Wo);
+  if (n_levels < 2 || n_levels > kMaxTailLevels || first_kept < 0 ||
+      first_kept > n_levels - 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long floats = 0;
+  TailOutputs out = {};
+  for (int l = 0, h = H, w = W; l < n_levels;
+       ++l, h = (h + 1) / 2, w = (w + 1) / 2) {
+    floats += (long long)h * w;
+    if (l >= first_kept && l + 1 < n_levels) out.level[l] = outs[l];
+  }
+  if (floats * sizeof(float) > kTailBudgetBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static Residency cache;
+  int blocks = 0;
+  cudaError_t err = resident_blocks(pyr_tail_kernel, kTailThreads,
+                                    kTailBudgetBytes, cache, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // One block per frame, each walking on to further frames beyond the
+  // blocks that fit the card at once.
+  const int grid = T < blocks ? T : blocks;
+  const bool wide = (long long)H * W % 4 == 0 && aligned(src, 16);
+  pyr_tail_kernel<<<grid, kTailThreads, floats * sizeof(float),
+                    static_cast<cudaStream_t>(stream)>>>(
+      src, out, T, H, W, n_levels, first_kept, wide);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int lap_level_f32(const float* g, const float* gn, float* out,
                              int T, int h, int w, int hn, int wn,
                              void* stream) {
-  lap_level_kernel<<<grid_for(h, w, T), dim3(kBlockX, kBlockY), 0,
+  const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY,
+                  T < kMaxGridZ ? T : kMaxGridZ);
+  lap_level_kernel<<<grid, dim3(kBlockX, kBlockY), 0,
                      static_cast<cudaStream_t>(stream)>>>(g, gn, out, T, h, w,
                                                           hn, wn);
   return static_cast<int>(cudaGetLastError());

@@ -46,20 +46,50 @@ def test_uint8_to_float_all_bytes(dev):
 @pytest.mark.parametrize("shape,levels,skip", [((3, 135, 192), 7, 3),
                                                ((2, 5, 7), 3, 0),
                                                ((1, 1, 1), 2, 0),
-                                               ((2, 480, 640), 9, 4)])
+                                               ((2, 480, 640), 9, 4),
+                                               ((2, 481, 643), 9, 4),
+                                               ((2, 480, 640), 9, 1),
+                                               ((2, 1080, 1920), 9, 4)])
 def test_kernels_equal_plain_bit_for_bit(dev, shape, levels, skip):
     v = _video(shape, dev)
+    plan = pyramid_cuda.plan(*shape[1:], levels, skip)
     pyramid_cuda.reset_launches()
     got = pyramid_cuda.laplacian_band_levels(v, levels, skip)
-    assert pyramid_cuda.LAUNCHES == {"pyr_down": levels - 1,
-                                     "lap_level": levels - 1 - skip}
+    assert pyramid_cuda.LAUNCHES == {"pyr_down_levels": len(plan.downs),
+                                     "pyr_tail": int(plan.tail),
+                                     "lap_level": len(plan.laps)}
     want = pyramid_cuda.laplacian_band_levels_ref(v, levels, skip)
     torch.cuda.synchronize()
+    assert len(got) == len(want)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    for s1 in (1, 2):
+    for s1 in (1, 2, 3):
         assert torch.equal(pyramid_cuda.gauss_level(v, s1),
                            pyramid_cuda.gauss_level_ref(v, s1))
+
+
+@pytest.mark.parametrize("shape,d", [((20, 481, 643), 1), ((20, 481, 643), 2),
+                                     ((20, 481, 643), 3), ((9, 480, 640), 2),
+                                     ((70_000, 5, 7), 1)])
+def test_fused_pyr_down_walks_frames(dev, shape, d):
+    # More frames than frame groups (and, last, than a grid's z extent):
+    # each block walks several frames through its two stage buffers.
+    v = _video(shape, dev)
+    assert torch.equal(pyramid_cuda.pyr_down(v, d),
+                       pyramid_cuda.gauss_level_ref(v, d))
+
+
+@pytest.mark.parametrize("shape,levels,first", [((300, 30, 41), 5, 1),
+                                                ((3, 119, 161), 8, 0),
+                                                ((2, 1, 9), 4, 2)])
+def test_tail_kernel_equals_plain(dev, shape, levels, first):
+    v = _video(shape, dev)
+    got = pyramid_cuda.pyr_tail(v, levels, first)
+    want = pyramid_cuda.laplacian_band_levels_ref(v, levels, first)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -72,6 +102,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         pyramid_cuda.pyr_down(v[0])
     with pytest.raises(ValueError):
         pyramid_cuda.lap_level(v, v[:, :4, :4].contiguous())
+    with pytest.raises(ValueError):
+        pyramid_cuda.pyr_down(v, 4)
+    with pytest.raises(ValueError):
+        pyramid_cuda.pyr_tail(v, 3, 2)
+    with pytest.raises(ValueError):
+        pyramid_cuda.pyr_tail(_video((1, 480, 640), dev), 9, 4)
 
 
 def test_locate_constant_video_not_found(dev):

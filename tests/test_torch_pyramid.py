@@ -99,12 +99,15 @@ def test_two_stage_composition_matches_full_chain():
 
 
 def test_cpu_wrappers_run_the_plain_version_without_launching():
+    # The second geometry's plan takes all three kernels' routes.
     pyramid_cuda.reset_launches()
-    v = torch.from_numpy(_video((2, 30, 40), 4))
-    got = pyramid_cuda.laplacian_band_levels(v, 4, 1)
-    want = pyramid_cuda.laplacian_band_levels_ref(v, 4, 1)
-    _close(got, [w.numpy() for w in want], atol=0)
-    assert pyramid_cuda.LAUNCHES == {"pyr_down": 0, "lap_level": 0}
+    for shape, levels, skip in [((2, 30, 40), 4, 1), ((1, 480, 640), 9, 1)]:
+        v = torch.from_numpy(_video(shape, 4))
+        got = pyramid_cuda.laplacian_band_levels(v, levels, skip)
+        want = pyramid_cuda.laplacian_band_levels_ref(v, levels, skip)
+        _close(got, [w.numpy() for w in want], atol=0)
+    assert pyramid_cuda.LAUNCHES == {"pyr_down_levels": 0, "pyr_tail": 0,
+                                     "lap_level": 0}
 
 
 def test_wrappers_reject_bad_input():
