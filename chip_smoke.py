@@ -73,13 +73,19 @@ def cuda_ms(fn, repeats: int = REPEATS, calls: int = 1) -> float:
     return statistics.median(times)
 
 
-def kernel_times(kernel, plain) -> dict:
+def kernel_times(kernel, plain, graph: bool = False) -> dict:
     """A kernel's row of times: ``ms`` and ``plain_ms`` from readings of
     ``KERNEL_CALLS`` calls in a row, and ``ms_one_call`` from readings of
-    one call each, which holds the host's time to make the call as well."""
-    return {"ms": cuda_ms(kernel, calls=KERNEL_CALLS),
-            "plain_ms": cuda_ms(plain, calls=KERNEL_CALLS),
-            "ms_one_call": cuda_ms(kernel)}
+    one call each, which holds the host's time to make the call as well.
+    With ``graph``, also ``graph_ms``: ``KERNEL_CALLS`` calls replayed from
+    a CUDA graph, the device's time alone where a call takes the host
+    longer to make than the card to run."""
+    row = {"ms": cuda_ms(kernel, calls=KERNEL_CALLS),
+           "plain_ms": cuda_ms(plain, calls=KERNEL_CALLS),
+           "ms_one_call": cuda_ms(kernel)}
+    if graph:
+        row["graph_ms"] = graph_ms(kernel, calls=KERNEL_CALLS)
+    return row
 
 
 def wall_s(fn):
@@ -93,17 +99,20 @@ def wall_s(fn):
     return out, time.perf_counter() - t0
 
 
-def graph_ms(fn) -> float:
-    """Median device time of ``fn`` replayed from a CUDA graph: what its
-    launches take when the host's time to launch them is out of the way."""
+def graph_ms(fn, calls: int = 1) -> float:
+    """Median device time of one ``fn`` replayed from a CUDA graph of
+    ``calls`` calls in a row: what its launches take when the host's time
+    to launch them (and, with ``calls`` > 1, to replay the graph) is out of
+    the way."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        kept = fn()   # noqa: F841  (the outputs live as long as the graph)
-    return cuda_ms(graph.replay)
+        kept = [fn() for _ in range(calls)]  # noqa: F841  (outputs live
+        # as long as the graph)
+    return cuda_ms(graph.replay) / calls
 
 
 def max_abs(got, want) -> float:
@@ -245,7 +254,7 @@ def phase_kernels(dev):
                          v, levels, skip), calls=KERNEL_CALLS),
                      # The chain's device time without the host's.
                      "graph_ms": graph_ms(lambda: pc.laplacian_band_levels(
-                         v, levels, skip)),
+                         v, levels, skip), calls=KERNEL_CALLS),
                      "plain_ms": cuda_ms(lambda: pc.laplacian_band_levels_ref(
                          v, levels, skip), calls=KERNEL_CALLS)})
         del v
@@ -302,7 +311,7 @@ def phase_kernels(dev):
                 "shape": list(v.shape),
                 "max_abs_err": max_abs([pc.pyr_down(v, d)], [g[d]]),
                 **kernel_times(lambda: pc.pyr_down(v, d),
-                               lambda: pc.gauss_level_ref(v, d)),
+                               lambda: pc.gauss_level_ref(v, d), graph=True),
                 **down_bound(d), "library_ms": None}
 
     kernels = [
@@ -315,7 +324,8 @@ def phase_kernels(dev):
              g[lvl] - pyramid.pyr_up(g[lvl + 1], tuple(g[lvl].shape[-2:]))
              for lvl in range(4, 8)]),
          **kernel_times(lambda: pc.pyr_tail(g2, 7, 2),
-                        lambda: pc.laplacian_band_levels_ref(g2, 7, 2)),
+                        lambda: pc.laplacian_band_levels_ref(g2, 7, 2),
+                        graph=True),
          **tail_bound, "library_ms": None},
         {"name": "lap_level_f32", "route": "cuda", "source": PYRAMID_CU,
          "replaces": f"{PALLAS}:314",
@@ -325,7 +335,8 @@ def phase_kernels(dev):
              [g4 - pyramid.pyr_up(g5, tuple(g4.shape[-2:]))]),
          **kernel_times(
              lambda: pc.lap_level(g4, g5),
-             lambda: g4 - pyramid.pyr_up(g5, tuple(g4.shape[-2:]))),
+             lambda: g4 - pyramid.pyr_up(g5, tuple(g4.shape[-2:])),
+             graph=True),
          **lap_bound, "library_ms": None},
     ]
     for k in kernels:

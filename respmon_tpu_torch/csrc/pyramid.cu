@@ -59,6 +59,7 @@ constexpr int kMaxDevices = 64;
 constexpr int kTailThreads = 1024;
 constexpr int kMaxTailLevels = 32;
 constexpr int kTailBudgetBytes = 200 * 1024;  // of the 227 KB a block may have
+constexpr int kRun = 4;  // outputs a thread of A computes along a row or column
 
 __device__ __forceinline__ int reflect101(int i, int n) {
   if (i >= 0 && i < n) return i;
@@ -177,30 +178,132 @@ struct Tile<3> {
 };
 
 // Extent, k levels down, of the window that n outputs need: n -> 2n + 3.
-constexpr int window(int n, int k) {
+__host__ __device__ constexpr int window(int n, int k) {
   return k == 0 ? n : 2 * window(n, k - 1) + 3;
 }
 
-// Shared memory of A in floats: two stage buffers (a frame's level-0
-// window, widened by up to 3 columns at each end for 16-byte copies), and
-// the H pass's scratch (largest at the first level).
+// Row strides of A's buffers in floats are fixed at compile time, so that
+// every shared-memory access of a pass has an immediate offset. Level 0 is
+// staged in rows of whole 16-byte units (up to 3 columns more at each end
+// than the tile needs); every other buffer has an odd stride, so that lanes
+// on neighbouring rows fall on distinct banks. level_stride(l) is the
+// stride of level l >= 1 in the stage buffer, and of the H pass's output
+// from level l in scratch.
+template <int D>
+__host__ __device__ constexpr int level_stride(int l) {
+  return window(Tile<D>::cols, D - l) | 1;
+}
+
 template <int D>
 struct Footprint {
-  static constexpr int stage_cols = (window(Tile<D>::cols, D) + 6 + 3) / 4 * 4;
-  static constexpr int stage = window(Tile<D>::rows, D) * stage_cols;
+  static constexpr int stage_stride =
+      (window(Tile<D>::cols, D) + 6 + 3) / 4 * 4;
+  static constexpr int stage = window(Tile<D>::rows, D) * stage_stride;
   static constexpr int scratch =
-      window(Tile<D>::rows, D - 1) * window(Tile<D>::cols, D);
+      window(Tile<D>::rows, D - 1) * level_stride<D>(0);
   static constexpr int bytes = (2 * stage + scratch) * sizeof(float);
 };
+
+// Items [0, rows * cols) of a pass, cols fastest, dealt out kThreads apart:
+// the thread's next (row, col) without a division per item.
+struct Walk {
+  int row, col, step_rows, step_cols, cols;
+  __device__ Walk(int tid, int cols_) : cols(cols_) {
+    row = tid / cols;
+    col = tid - row * cols;
+    step_rows = kThreads / cols;
+    step_cols = kThreads - step_rows * cols;
+  }
+  __device__ void next() {
+    row += step_rows;
+    col += step_cols;
+    if (col >= cols) {
+      col -= cols;
+      ++row;
+    }
+  }
+};
+
+// x[q] = src[(reflect101(first + q, n_level) - lo) * kStep] for q < 2n + 3:
+// the taps of n outputs of a run, all read before any is summed.
+template <int kStep>
+__device__ __forceinline__ void taps(float (&x)[2 * kRun + 3],
+                                     const float* src, int first, int n,
+                                     int n_level, int lo) {
+  if (first >= 0 && first + 2 * n + 2 < n_level) {
+    const float* p = src + (first - lo) * kStep;
+#pragma unroll
+    for (int q = 0; q < 2 * kRun + 3; ++q)
+      if (q < 2 * n + 3) x[q] = p[q * kStep];
+  } else {
+#pragma unroll
+    for (int q = 0; q < 2 * kRun + 3; ++q)
+      if (q < 2 * n + 3)
+        x[q] = src[(reflect101(first + q, n_level) - lo) * kStep];
+  }
+}
+
+// Output k of a run from its taps.
+__device__ __forceinline__ float run_out(const float (&x)[2 * kRun + 3],
+                                         int k) {
+  return tap5(x[2 * k], x[2 * k + 1], x[2 * k + 2], x[2 * k + 3],
+              x[2 * k + 4]);
+}
+
+// One level of A: level l of the window (in stage, row stride kIn, column
+// c_lo at `col0` of a row) to level l+1 (in stage again, row stride kOut:
+// level l is spent by then). The H pass gives a thread runs of kRun
+// outputs down one column (lanes on neighbouring columns), the W pass runs
+// along one row (lanes on neighbouring rows). A run's taps are all read
+// before any sum, and its kRun sums are computed whether or not they are
+// stored, so that their chains of dependent adds interleave.
+template <int kIn, int kMid, int kOut>
+__device__ __forceinline__ void down_level(float* stage, float* scratch,
+                                           int tid, int col0, int h, int w,
+                                           int r_lo, int c_lo, int c_hi,
+                                           int r_lo_n, int r_hi_n, int c_lo_n,
+                                           int c_hi_n) {
+  const int n_rows = r_hi_n - r_lo_n + 1;
+  const int n_cols = c_hi - c_lo + 1;
+  const int h_runs = (n_rows + kRun - 1) / kRun;
+  for (Walk it(tid, n_cols); it.row < h_runs; it.next()) {
+    const int i0 = it.row * kRun, n = min(kRun, n_rows - i0);
+    float x[2 * kRun + 3] = {};
+    taps<kIn>(x, stage + col0 + it.col, 2 * (r_lo_n + i0) - 2, n, h, r_lo);
+    float v[kRun];
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) v[k] = run_out(x, k);
+    float* out = scratch + i0 * kMid + it.col;
+#pragma unroll
+    for (int k = 0; k < kRun; ++k)
+      if (k < n) out[k * kMid] = v[k];
+  }
+  __syncthreads();
+  const int n_out = c_hi_n - c_lo_n + 1;
+  const int w_runs = (n_out + kRun - 1) / kRun;
+  for (Walk it(tid, n_rows); it.row < w_runs; it.next()) {
+    const int i = it.col, j0 = it.row * kRun, n = min(kRun, n_out - j0);
+    float x[2 * kRun + 3] = {};
+    taps<1>(x, scratch + i * kMid, 2 * (c_lo_n + j0) - 2, n, w, c_lo);
+    float v[kRun];
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) v[k] = run_out(x, k);
+    float* out = stage + i * kOut + j0;
+#pragma unroll
+    for (int k = 0; k < kRun; ++k)
+      if (k < n) out[k] = v[k];
+  }
+  __syncthreads();
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 pyr_down_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
                        int T, int H, int W, bool wide) {
+  using F = Footprint<D>;
   extern __shared__ __align__(16) float smem[];
-  float* const scratch = smem + 2 * Footprint<D>::stage;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kBlockX + tx;
+  float* const scratch = smem + 2 * F::stage;
+  const int tid = threadIdx.x;
 
   // Level sizes, and per level the rows [r_lo, r_hi] and columns
   // [c_lo, c_hi] (inclusive, clamped to the level) that the tile needs.
@@ -228,88 +331,60 @@ pyr_down_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
   const int c0 = wide ? c_lo[0] & ~3 : c_lo[0];
   const int c1 = wide ? min((c_hi[0] + 4) & ~3, W) : c_hi[0] + 1;
   const int rows0 = r_hi[0] - r_lo[0] + 1;
-  const int cols0 = c1 - c0;
   const long long in_plane = (long long)H * W;
   const long long out_plane = (long long)h[D] * w[D];
 
   auto fill = [&](float* stage, int t) {
     const float* f = src + t * in_plane + (long long)r_lo[0] * W + c0;
     if (wide) {
-      const int q = cols0 / 4;
-      for (int e = tid; e < rows0 * q; e += kThreads) {
-        const int r = e / q, c = (e - r * q) * 4;
-        copy16(stage + r * cols0 + c, f + (long long)r * W + c);
-      }
+      for (Walk it(tid, (c1 - c0) / 4); it.row < rows0; it.next())
+        copy16(stage + it.row * F::stage_stride + 4 * it.col,
+               f + (long long)it.row * W + 4 * it.col);
     } else {
-      for (int e = tid; e < rows0 * cols0; e += kThreads) {
-        const int r = e / cols0, c = e - r * cols0;
-        copy4(stage + r * cols0 + c, f + (long long)r * W + c);
-      }
+      for (Walk it(tid, c1 - c0); it.row < rows0; it.next())
+        copy4(stage + it.row * F::stage_stride + it.col,
+              f + (long long)it.row * W + it.col);
     }
   };
 
-  // Levels 1..D of frame t from its level-0 window in stage.
+  // Levels 1..D of frame t from its level-0 window in stage, level D out
+  // to device memory row by row.
   auto levels = [&](float* stage, int t) {
-    int stride = cols0, origin = c0;  // the window of level l in stage
-#pragma unroll
-    for (int l = 0; l < D; ++l) {
-      const int n_rows = r_hi[l + 1] - r_lo[l + 1] + 1;
-      const int n_cols = c_hi[l] - c_lo[l] + 1;
-      // H pass: scratch[i][c] over the needed columns c of level l.
-      for (int i = ty; i < n_rows; i += kBlockY) {
-        int rows[5];
-#pragma unroll
-        for (int k = 0; k < 5; ++k)
-          rows[k] = (reflect101(2 * (r_lo[l + 1] + i) - 2 + k, h[l]) -
-                     r_lo[l]) * stride;
-        const float* base = stage + (c_lo[l] - origin);
-        for (int c = tx; c < n_cols; c += kBlockX) {
-          const float* col = base + c;
-          scratch[i * n_cols + c] = tap5(col[rows[0]], col[rows[1]],
-                                         col[rows[2]], col[rows[3]],
-                                         col[rows[4]]);
-        }
-      }
-      __syncthreads();
-      // W pass: into stage (level l is spent), or for the last level out.
-      const int n_out = c_hi[l + 1] - c_lo[l + 1] + 1;
-      float* const out_frame = dst + t * out_plane;
-      for (int i = ty; i < n_rows; i += kBlockY) {
-        const float* row = scratch + i * n_cols;
-        for (int j = tx; j < n_out; j += kBlockX) {
-          const int jj = 2 * (c_lo[l + 1] + j) - 2;
-          float x[5];
-#pragma unroll
-          for (int k = 0; k < 5; ++k)
-            x[k] = row[reflect101(jj + k, w[l]) - c_lo[l]];
-          const float v = tap5(x[0], x[1], x[2], x[3], x[4]);
-          if (l + 1 == D) {
-            out_frame[(long long)(r_lo[D] + i) * w[D] + c_lo[D] + j] = v;
-          } else {
-            stage[i * n_out + j] = v;
-          }
-        }
-      }
-      __syncthreads();
-      stride = n_out;
-      origin = c_lo[l + 1];
-    }
+    down_level<F::stage_stride, level_stride<D>(0), level_stride<D>(1)>(
+        stage, scratch, tid, c_lo[0] - c0, h[0], w[0], r_lo[0], c_lo[0],
+        c_hi[0], r_lo[1], r_hi[1], c_lo[1], c_hi[1]);
+    if constexpr (D >= 2)
+      down_level<level_stride<D>(1), level_stride<D>(1), level_stride<D>(2)>(
+          stage, scratch, tid, 0, h[1], w[1], r_lo[1], c_lo[1], c_hi[1],
+          r_lo[2], r_hi[2], c_lo[2], c_hi[2]);
+    if constexpr (D >= 3)
+      down_level<level_stride<D>(2), level_stride<D>(2), level_stride<D>(3)>(
+          stage, scratch, tid, 0, h[2], w[2], r_lo[2], c_lo[2], c_hi[2],
+          r_lo[3], r_hi[3], c_lo[3], c_hi[3]);
+    float* const out =
+        dst + t * out_plane + (long long)r_lo[D] * w[D] + c_lo[D];
+    for (Walk it(tid, c_hi[D] - c_lo[D] + 1); it.row <= r_hi[D] - r_lo[D];
+         it.next())
+      out[(long long)it.row * w[D] + it.col] =
+          stage[it.row * level_stride<D>(D) + it.col];
+    __syncthreads();
   };
 
   // Two stage buffers: frame t is computed while the block's next frame
   // lands. Every step commits a group, empty or not, so that "all but the
-  // newest group landed" means "frame t landed".
-  float* const stages[2] = {smem, smem + Footprint<D>::stage};
+  // newest group landed" means "frame t landed". The buffer is addressed
+  // from smem, not picked from an array of pointers, so that the compiler
+  // keeps its accesses shared-memory ones.
   int t = blockIdx.z;
-  if (t < T) fill(stages[0], t);
+  if (t < T) fill(smem, t);
   commit();
   for (int k = 0; t < T; ++k, t += gridDim.z) {
     const int next = t + gridDim.z;
-    if (next < T) fill(stages[(k + 1) & 1], next);
+    if (next < T) fill(smem + ((k + 1) & 1) * F::stage, next);
     commit();
     wait_but<1>();
     __syncthreads();
-    levels(stages[k & 1], t);  // ends in a barrier: the buffers are free
+    levels(smem + (k & 1) * F::stage, t);  // ends in a barrier
   }
   wait_but<0>();
 }
@@ -372,7 +447,7 @@ int launch_down(const float* src, float* dst, int T, int H, int W,
   const bool wide = W % 4 == 0 && aligned(src, 16);
   pyr_down_levels_kernel<D>
       <<<dim3(tiles_x, tiles_y, static_cast<int>(groups)),
-         dim3(kBlockX, kBlockY), Footprint<D>::bytes,
+         kThreads, Footprint<D>::bytes,
          static_cast<cudaStream_t>(stream)>>>(src, dst, T, H, W, wide);
   return static_cast<int>(cudaGetLastError());
 }
