@@ -894,6 +894,7 @@ def phase_1080p(dev):
 
     from respmon_tpu_torch.config import CalibrationConfig
     from respmon_tpu_torch.io.synthetic import breathing_clip
+    from respmon_tpu_torch.ops import pyramid_cuda
     from respmon_tpu_torch.pipeline import evm
 
     cfg = CalibrationConfig()
@@ -907,9 +908,11 @@ def phase_1080p(dev):
     reset_launches()
     res = evm.locate(frames, FPS, cfg)
     launches = read_launches()
-    check(launches["pyr_down_levels"] == 1 and launches["pyr_tail"] == 1
-          and launches["lap_level"] == 0,
-          f"the 1080p locate launched A (d = 3) and B once each: {launches}")
+    plan = pyramid_cuda.plan(1080, 1920, cfg.pyramid_levels,
+                             cfg.skip_levels_at_top)
+    check(launches["pyr_down_levels"] == len(plan.downs)
+          and launches["pyr_tail"] == 1 and launches["lap_level"] == 0,
+          f"the 1080p locate launched A and B as planned: {launches}")
     check(bool(res.found), "1080p locate found an ROI")
     with pyramid_route():
         plain = evm.locate(frames, FPS, cfg)

@@ -7,14 +7,15 @@
 //   - gauss_level_tiled (K2, :245-291, strip kernel :269-273): a Gaussian
 //     level of frames too large for VMEM, over halo'd W-strips.
 // Here both are two kernels, composed by the plan of ops/pyramid_cuda.py:
-//   pyr_down_levels_f32 (A): d = 1..3 pyrDowns fused per output tile;
+//   pyr_down_levels_f32 (A): one or two pyrDowns fused per output tile;
 //   pyr_tail_f32 (B): from a level whose remaining pyramid fits one block's
 //     shared memory, every further level of a frame and the kept Laplacian
 //     levels, one block per frame;
 //   lap_level_f32: one kept level g - pyrUp(gn) from two levels in device
 //     memory, for the kept levels above B's (a route chosen by the shapes:
 //     no default configuration takes it).
-// At 640x480 L9/S4 the chain is one A (d = 2) and one B: two launches.
+// At 640x480 L9/S4 the chain is one A (d = 2) and one B: two launches; at
+// 1080p A (d = 2), A (d = 1) and B.
 //
 // Bound: device memory. At (128, 480, 640) A reads 157 MB and writes the
 // 10 MB of level 2; every other byte of the chain (B's 10 MB in, 0.8 MB of
@@ -26,12 +27,19 @@
 //   4-byte ones), the next frame's window in flight while the current one
 //   is computed. Each level is an H pass into a scratch buffer, then a W
 //   pass back into the stage buffer, whose level below is spent by then;
-//   the last W pass writes level d to device memory. A level-d tile of n
-//   rows reads 2^d (n + 3) - 3 rows of level 0: the halo is re-read by the
+//   level d goes out to device memory row by row. A level-d tile of n rows
+//   reads 2^d (n + 3) - 3 rows of level 0: the halo is read again by the
 //   neighbouring tile, mostly from L2.
 // - B reads its frame's level once by cp.async, computes each further level
 //   from five column sums read out of shared memory (no scratch), and
 //   writes each kept g[l] - pyrUp(g[l+1]) straight to device memory.
+// What holds A back on the H100 is not the bytes but issuing the arithmetic
+// (nine rounded operations an output of each pass, in the plain version's
+// order) with its loads and index work: the passes give each thread runs
+// of outputs whose chains of dependent adds interleave (down_level). A
+// third fused level costs more in recomputed halo, and in passes too small
+// to fill a block, than it saves in bytes, so A fuses at most two.
+// Measured times beside the bounds: PERF.md.
 //
 // Borders: reflect-101 at every level (periodic for n = 1, 2). A tile's
 // windows are the rows and columns its outputs need, level by level,
@@ -171,10 +179,6 @@ struct Tile<1> {
 template <>
 struct Tile<2> {
   static constexpr int rows = 16, cols = 32;
-};
-template <>
-struct Tile<3> {
-  static constexpr int rows = 8, cols = 16;
 };
 
 // Extent, k levels down, of the window that n outputs need: n -> 2n + 3.
@@ -357,10 +361,6 @@ pyr_down_levels_kernel(const float* __restrict__ src, float* __restrict__ dst,
       down_level<level_stride<D>(1), level_stride<D>(1), level_stride<D>(2)>(
           stage, scratch, tid, 0, h[1], w[1], r_lo[1], c_lo[1], c_hi[1],
           r_lo[2], r_hi[2], c_lo[2], c_hi[2]);
-    if constexpr (D >= 3)
-      down_level<level_stride<D>(2), level_stride<D>(2), level_stride<D>(3)>(
-          stage, scratch, tid, 0, h[2], w[2], r_lo[2], c_lo[2], c_hi[2],
-          r_lo[3], r_hi[3], c_lo[3], c_hi[3]);
     float* const out =
         dst + t * out_plane + (long long)r_lo[D] * w[D] + c_lo[D];
     for (Walk it(tid, c_hi[D] - c_lo[D] + 1); it.row <= r_hi[D] - r_lo[D];
@@ -534,7 +534,7 @@ __global__ void lap_level_kernel(const float* __restrict__ g,
 // C interface (loaded with ctypes). Each returns the cudaError_t of its
 // launch; the caller allocates every buffer and passes its current stream.
 
-// dst = pyrDown applied d times (1 <= d <= 3) to the (T, H, W) video src.
+// dst = pyrDown applied d times (1 <= d <= 2) to the (T, H, W) video src.
 extern "C" int pyr_down_levels_f32(const float* src, float* dst, int T, int H,
                                    int W, int d, void* stream) {
   switch (d) {
@@ -542,8 +542,6 @@ extern "C" int pyr_down_levels_f32(const float* src, float* dst, int T, int H,
       return launch_down<1>(src, dst, T, H, W, stream);
     case 2:
       return launch_down<2>(src, dst, T, H, W, stream);
-    case 3:
-      return launch_down<3>(src, dst, T, H, W, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,7 +9,7 @@ Counterpart of ``respmon_tpu/ops/pyramid_pallas.py``:
     pyrDowns) and one ``pyr_tail_f32`` (B, the rest of the pyramid per
     frame in shared memory, the kept levels out);
   - ``gauss_level`` (its K2, ``gauss_level_tiled``): Gaussian level ``s1``
-    — A in steps of at most three levels.  The TPU split 1080p frames into
+    — A in steps of at most two levels.  The TPU split 1080p frames into
     W-strips to fit VMEM; A tiles every frame size by thread block.
 
 The kernels live in ``csrc/pyramid.cu``.  ``pyr_down``, ``pyr_tail`` and
@@ -30,7 +30,7 @@ from respmon_tpu_torch.ops.pyramid import pyramid_shapes
 
 LAUNCHES = {"pyr_down_levels": 0, "pyr_tail": 0, "lap_level": 0}
 
-MAX_FUSED = 3                 # pyrDowns that one launch of A fuses
+MAX_FUSED = 2                 # pyrDowns that one launch of A fuses
 MAX_TAIL_LEVELS = 32          # levels that one launch of B computes
 TAIL_BUDGET_BYTES = 200 * 1024  # B's shared memory, of a block's 227 KB
 
@@ -120,8 +120,9 @@ def _raise_on(err: int, kernel: str) -> None:
 
 
 def pyr_down(x: torch.Tensor, d: int = 1) -> torch.Tensor:
-    """cv2.pyrDown applied ``d`` times (1 <= d <= 3) to a (T, H, W) f32
-    video, in one launch of the ``pyr_down_levels_f32`` kernel (A)."""
+    """cv2.pyrDown applied ``d`` times (1 <= d <= MAX_FUSED) to a
+    (T, H, W) f32 video, in one launch of the ``pyr_down_levels_f32``
+    kernel (A)."""
     if not 1 <= d <= MAX_FUSED:
         raise ValueError(f"pyr_down: d = {d} is not in [1, {MAX_FUSED}]")
     if x.device.type == "cpu":

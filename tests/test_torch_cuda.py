@@ -69,7 +69,7 @@ def test_kernels_equal_plain_bit_for_bit(dev, shape, levels, skip):
 
 
 @pytest.mark.parametrize("shape,d", [((20, 481, 643), 1), ((20, 481, 643), 2),
-                                     ((20, 481, 643), 3), ((9, 480, 640), 2),
+                                     ((20, 243, 647), 2), ((9, 480, 640), 2),
                                      ((70_000, 5, 7), 1)])
 def test_fused_pyr_down_walks_frames(dev, shape, d):
     # More frames than frame groups (and, last, than a grid's z extent):
@@ -103,7 +103,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         pyramid_cuda.lap_level(v, v[:, :4, :4].contiguous())
     with pytest.raises(ValueError):
-        pyramid_cuda.pyr_down(v, 4)
+        pyramid_cuda.pyr_down(v, pyramid_cuda.MAX_FUSED + 1)
     with pytest.raises(ValueError):
         pyramid_cuda.pyr_tail(v, 3, 2)
     with pytest.raises(ValueError):

@@ -37,12 +37,12 @@ def _constant(name):
 
 @pytest.mark.parametrize("geometry,tail_from,downs,laps", [
     ((480, 640, 9, 4), 2, ((0, 2),), ()),
-    ((1080, 1920, 9, 4), 3, ((0, 3),), ()),
+    ((1080, 1920, 9, 4), 3, ((0, 2), (2, 1)), ()),
     ((135, 192, 7, 3), 0, (), ()),
     ((5, 7, 3, 0), 0, (), ()),
     ((480, 640, 9, 1), 2, ((0, 1), (1, 1)), (1,)),
     ((480, 640, 9, 0), 2, ((0, 1), (1, 1)), (0, 1)),
-    ((2160, 3840, 9, 4), 4, ((0, 3), (3, 1)), ()),
+    ((2160, 3840, 9, 4), 4, ((0, 2), (2, 2)), ()),
 ])
 def test_plan_of_the_configs(geometry, tail_from, downs, laps):
     p = pc.plan(*geometry)
@@ -93,10 +93,10 @@ def test_plan_computes_every_kept_level_once(h, w, levels, skip):
     assert p.tail_bytes == pc.tail_bytes(h, w, levels, p.tail_from)
 
 
-def test_gauss_level_fuses_at_most_three_levels():
+def test_gauss_level_fuses_at_most_two_levels():
     assert pc._fused(0, 0) == ()
-    assert pc._fused(0, 5) == ((0, 3), (3, 2))
-    assert pc._fused(2, 9) == ((2, 3), (5, 3), (8, 1))
+    assert pc._fused(0, 5) == ((0, 2), (2, 2), (4, 1))
+    assert pc._fused(2, 9) == ((2, 2), (4, 2), (6, 2), (8, 1))
 
 
 # --- (b) the plan run with the plain pieces --------------------------------
@@ -143,9 +143,9 @@ def test_gauss_level_in_fused_steps_equals_plain(s1):
     assert torch.equal(pc.gauss_level(v, s1), pc.gauss_level_ref(v, s1))
 
 
-def test_pyr_down_takes_one_to_three_levels():
+def test_pyr_down_takes_one_or_two_levels():
     v = torch.zeros((1, 8, 8))
-    for d in (0, 4):
+    for d in (0, pc.MAX_FUSED + 1):
         with pytest.raises(ValueError):
             pc.pyr_down(v, d)
 
@@ -251,7 +251,8 @@ def _plain(frame, d):
 
 
 @settings(max_examples=150, deadline=None)
-@given(h=st.integers(1, 90), w=st.integers(1, 90), d=st.integers(1, 3),
+@given(h=st.integers(1, 90), w=st.integers(1, 90),
+       d=st.integers(1, pc.MAX_FUSED),
        rows=st.integers(1, 9), cols=st.integers(1, 9), wide=st.booleans(),
        seed=st.integers(0, 2 ** 16))
 def test_tiling_model_equals_plain_pyr_down(h, w, d, rows, cols, wide, seed):
@@ -263,7 +264,7 @@ def test_tiling_model_equals_plain_pyr_down(h, w, d, rows, cols, wide, seed):
 
 @pytest.mark.parametrize("h,w", [(1, 1), (2, 2), (1, 2), (2, 9), (5, 7),
                                  (481, 643), (480, 640), (135, 240)])
-@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("d", range(1, pc.MAX_FUSED + 1))
 def test_kernel_tiles_equal_plain_pyr_down(h, w, d):
     # The kernel's own tile sizes: interior, edge and corner tiles of the
     # path's frames, tiny and odd frames; 16-byte windows where W allows.
