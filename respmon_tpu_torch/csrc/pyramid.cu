@@ -69,13 +69,13 @@ constexpr int kMaxTailLevels = 32;
 constexpr int kTailBudgetBytes = 200 * 1024;  // of the 227 KB a block may have
 constexpr int kRun = 4;  // outputs a thread of A computes along a row or column
 
-// Mirror i into [0, n) until it lands there: reflect-101, periodic for a
-// small n. A tap lies at most 2 outside its level, so one mirror (a few
-// instructions, no division) is the rule.
 __device__ __forceinline__ int reflect101(int i, int n) {
+  if (i >= 0 && i < n) return i;
   if (n == 1) return 0;
-  while (i < 0 || i >= n) i = i < 0 ? -i : 2 * (n - 1) - i;
-  return i;
+  const int period = 2 * (n - 1);
+  int m = i % period;
+  if (m < 0) m += period;
+  return m < n ? m : period - m;
 }
 
 // acc = (((x0*w0 + x1*w1) + x2*w2) + x3*w3) + x4*w4, [1,4,6,4,1]/16.
