@@ -146,10 +146,26 @@ def read_launches() -> dict:
 
 def check_k1_path(launches, what: str) -> None:
     """One 640x480 ``locate`` ran K1 as its plan says: one A (d = 2), one
-    B, no lap_level_f32, and no kernel of the chain before them."""
-    check(launches["pyr_down_levels"] == 1 and launches["pyr_tail"] == 1
+    B, no A (d = 1), no lap_level_f32, and no kernel of the chain before
+    them."""
+    check(launches["pyr_down_levels_d2"] == 1 and launches["pyr_tail"] == 1
+          and launches["pyr_down_levels_d1"] == 0
           and launches["lap_level"] == 0 and "pyr_down" not in launches,
-          f"{what} launched A and B once each: {launches}")
+          f"{what} launched A (d = 2) and B once each: {launches}")
+
+
+def planned_launches(h: int, w: int, levels: int, skip: int) -> dict:
+    """The stencil kernels' launch counts that the plan of one K1 call at
+    this geometry makes."""
+    from respmon_tpu_torch.ops import pyramid_cuda
+
+    p = pyramid_cuda.plan(h, w, levels, skip)
+    counts = dict.fromkeys(pyramid_cuda.LAUNCHES, 0)
+    for _, d in p.downs:
+        counts[f"pyr_down_levels_d{d}"] += 1
+    counts["pyr_tail"] = int(p.tail)
+    counts["lap_level"] = len(p.laps)
+    return counts
 
 
 def quantize(clip):
@@ -242,6 +258,9 @@ def phase_kernels(dev):
         got = pc.laplacian_band_levels(v, levels, skip)
         torch.cuda.synchronize()
         launches = read_launches()
+        planned = planned_launches(*shape[1:], levels, skip)
+        check({k: launches[k] for k in planned} == planned,
+              f"K1 {shape} L{levels}/S{skip} launched as planned: {launches}")
         if skip == 1:
             lap_path = launches
         err = max_abs(got, pc.laplacian_band_levels_ref(v, levels, skip))
@@ -278,13 +297,13 @@ def phase_kernels(dev):
     check(lap_path is not None and lap_path["lap_level"] > 0,
           f"the L9/S1 chain took the lap_level_f32 route: {lap_path}")
 
-    # The kernels at the shapes the 640x480 path gives them (lap_level_f32
-    # at the kept level it would take there).  No one PyTorch call computes
-    # any of these functions (a strided convolution needs a reflect pad
-    # before it, pyrUp two phases), so there is no library time.
+    # The kernels at the shapes their paths give them: A (d = 2) and B at
+    # 640x480, A (d = 1) at level 2 of the 1080p locate, lap_level_f32 at
+    # the kept level it would take at 640x480.
     v = video((128, 480, 640))
     g = pyramid.gaussian_pyramid(v, 9)
     g2, g4, g5 = g[2].contiguous(), g[4].contiguous(), g[5].contiguous()
+    v1 = video((128, 270, 480))
     t_len = v.shape[0]
 
     def elems(level):
@@ -293,30 +312,53 @@ def phase_kernels(dev):
     # A pyrDown output: 5 column sums of 5 taps and one row sum, 9
     # operations each.  A Laplacian output: three H phases, one W phase
     # (<= 4 operations each), one subtraction.
-    def down_bound(d):
-        return bound(4 * (elems(0) + elems(d)),
-                     54 * sum(elems(lvl) for lvl in range(1, d + 1)))
+    def down_bound(x, d):
+        sizes = [x.shape[0] * hh * ww
+                 for hh, ww in pyramid.pyramid_shapes(*x.shape[1:], d + 1)]
+        return bound(4 * (sizes[0] + sizes[d]), 54 * sum(sizes[1:]))
 
     tail_bound = bound(4 * (elems(2) + sum(elems(lvl) for lvl in range(4, 8))),
                        54 * sum(elems(lvl) for lvl in range(3, 9))
                        + 17 * sum(elems(lvl) for lvl in range(4, 8)))
     lap_bound = bound(4 * (2 * g4.numel() + g5.numel()), 17 * g4.numel())
 
-    # A with d = 2 is K1's first launch there; with d = 1 it is K2 at
-    # s1 = 1.
-    def down_row(d, replaces):
-        return {"name": "pyr_down_levels_f32", "route": "cuda",
-                "source": PYRAMID_CU, "replaces": f"{PALLAS}:{replaces}",
-                "d": d,
-                "shape": list(v.shape),
-                "max_abs_err": max_abs([pc.pyr_down(v, d)], [g[d]]),
-                **kernel_times(lambda: pc.pyr_down(v, d),
-                               lambda: pc.gauss_level_ref(v, d), graph=True),
-                **down_bound(d), "library_ms": None}
+    # One pyrDown is one PyTorch call: a strided convolution whose reflect
+    # padding is reflect-101, ceil(n/2) outputs from n >= 3.  Timed here
+    # only (in full float32: the port turns TF32 off), to set beside A
+    # (d = 1); no single call computes two levels, B or lap_level_f32.
+    k5 = torch.tensor([1., 4., 6., 4., 1.], device=dev) / 16
+    conv = torch.nn.Conv2d(1, 1, 5, stride=2, padding=2, bias=False,
+                           padding_mode="reflect").to(dev)
+    conv.weight.requires_grad_(False).copy_(torch.outer(k5, k5)[None, None])
+
+    def library_pyr_down(x):
+        return conv(x[:, None])[:, 0]
+
+    # A with d = 2 is K1's first launch at 640x480; with d = 1 its second
+    # at 1080p (and K2 at s1 = 1).
+    def down_row(x, d):
+        want = pc.gauss_level_ref(x, d)
+        row = {"name": "pyr_down_levels_f32", "route": "cuda",
+               "source": PYRAMID_CU, "replaces": f"{PALLAS}:314",
+               "d": d, "counter": f"pyr_down_levels_d{d}",
+               "shape": list(x.shape),
+               "max_abs_err": max_abs([pc.pyr_down(x, d)], [want]),
+               **kernel_times(lambda: pc.pyr_down(x, d),
+                              lambda: pc.gauss_level_ref(x, d), graph=True),
+               **down_bound(x, d), "library_ms": None}
+        if d == 1:
+            with torch.no_grad():
+                row["library_max_abs_err"] = max_abs([library_pyr_down(x)],
+                                                     [want])
+                row["library_ms"] = cuda_ms(lambda: library_pyr_down(x),
+                                            calls=KERNEL_CALLS)
+            check(row["library_max_abs_err"] <= 1e-6,
+                  "the convolution computes A's (d = 1) function")
+        return row
 
     kernels = [
-        down_row(2, 314),
-        down_row(1, 275),
+        down_row(v, 2),
+        down_row(v1, 1),
         {"name": "pyr_tail_f32", "route": "cuda", "source": PYRAMID_CU,
          "replaces": f"{PALLAS}:314", "shape": list(g2.shape),
          "levels": 7, "first_kept": 2,
@@ -717,7 +759,7 @@ def phase_k3_locate(frames, roi):
     """One 640x480 calibration with the band-matrix pyramid (K3) in place
     of the stencil kernels: the same ROI, through K3's kernels."""
     from respmon_tpu_torch.config import CalibrationConfig
-    from respmon_tpu_torch.ops import pyramid_mm
+    from respmon_tpu_torch.ops import pyramid_cuda, pyramid_mm
     from respmon_tpu_torch.pipeline import evm
 
     cfg = CalibrationConfig()
@@ -728,8 +770,7 @@ def phase_k3_locate(frames, roi):
     launches = read_launches()
     check(launches["band_left"] > 0 and launches["band_right"] > 0,
           f"the K3 calibration launched both band kernels: {launches}")
-    check(launches["pyr_down_levels"] == 0 and launches["pyr_tail"] == 0
-          and launches["lap_level"] == 0,
+    check(not any(launches[k] for k in pyramid_cuda.LAUNCHES),
           "the K3 calibration launched no stencil kernel")
     check(bool(res.found), "K3 locate found an ROI")
     check(tuple(_bbox(res)) == tuple(roi),
@@ -894,7 +935,6 @@ def phase_1080p(dev):
 
     from respmon_tpu_torch.config import CalibrationConfig
     from respmon_tpu_torch.io.synthetic import breathing_clip
-    from respmon_tpu_torch.ops import pyramid_cuda
     from respmon_tpu_torch.pipeline import evm
 
     cfg = CalibrationConfig()
@@ -908,11 +948,13 @@ def phase_1080p(dev):
     reset_launches()
     res = evm.locate(frames, FPS, cfg)
     launches = read_launches()
-    plan = pyramid_cuda.plan(1080, 1920, cfg.pyramid_levels,
-                             cfg.skip_levels_at_top)
-    check(launches["pyr_down_levels"] == len(plan.downs)
-          and launches["pyr_tail"] == 1 and launches["lap_level"] == 0,
-          f"the 1080p locate launched A and B as planned: {launches}")
+    planned = planned_launches(1080, 1920, cfg.pyramid_levels,
+                               cfg.skip_levels_at_top)
+    check({k: launches[k] for k in planned} == planned
+          and planned["pyr_down_levels_d1"] == 1
+          and planned["pyr_down_levels_d2"] == 1 and planned["pyr_tail"] == 1,
+          f"the 1080p locate launched A (d = 2), A (d = 1) and B once each, "
+          f"as planned: {launches}")
     check(bool(res.found), "1080p locate found an ROI")
     with pyramid_route():
         plain = evm.locate(frames, FPS, cfg)
@@ -953,20 +995,21 @@ def main() -> int:
 
     # Each path was driven with every count at 0 just before it and read
     # just after.  ``launches`` is the count on the kernel's own path: the
-    # flow slice for A and B, the L9/S1 parity run for lap_level_f32 (no
-    # default configuration takes its route), the K3 calibration for the
-    # band kernels.
+    # flow slice for A (d = 2) and B, the 1080p locate for A (d = 1), the
+    # L9/S1 parity run for lap_level_f32 (no default configuration takes
+    # its route), the K3 calibration for the band kernels.
     paths = {"slice_640x480": avg_launches, "flow_640x480": flow_launches,
              "k3_locate_640x480": k3_launches,
              "k1_parity_4x480x640_l9s1": lap_path,
              "locate_1080p": launches_1080p}
-    own_path = {"pyr_down_levels": "flow_640x480",
+    own_path = {"pyr_down_levels_d2": "flow_640x480",
+                "pyr_down_levels_d1": "locate_1080p",
                 "pyr_tail": "flow_640x480",
                 "lap_level": "k1_parity_4x480x640_l9s1",
                 "band_left": "k3_locate_640x480",
                 "band_right": "k3_locate_640x480"}
     for k in kernels:
-        key = k["name"].removesuffix("_f32")
+        key = k.pop("counter", k["name"].removesuffix("_f32"))
         k["launches_by_path"] = {name: counts[key]
                                  for name, counts in paths.items()}
         k["path"] = own_path[key]

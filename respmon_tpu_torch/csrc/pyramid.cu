@@ -9,8 +9,8 @@
 // Here both are two kernels, composed by the plan of ops/pyramid_cuda.py:
 //   pyr_down_levels_f32 (A): one or two pyrDowns fused per output tile;
 //   pyr_tail_f32 (B): from a level whose remaining pyramid fits one block's
-//     shared memory, every further level of a frame and the kept Laplacian
-//     levels, one block per frame;
+//     shared memory (the plan's budget), every further level of a frame and
+//     the kept Laplacian levels, one block per frame;
 //   lap_level_f32: one kept level g - pyrUp(gn) from two levels in device
 //     memory, for the kept levels above B's (a route chosen by the shapes:
 //     no default configuration takes it).
@@ -54,6 +54,7 @@
 // (and -fmad=false at build) keep nvcc from contracting a multiply-add into
 // an FMA, so the kernels equal the plain version on the card bit for bit.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -65,8 +66,6 @@ constexpr int kThreads = kBlockX * kBlockY;
 constexpr int kMaxGridZ = 65535;
 constexpr int kMaxDevices = 64;
 constexpr int kTailThreads = 1024;
-constexpr int kMaxTailLevels = 32;
-constexpr int kTailBudgetBytes = 200 * 1024;  // of the 227 KB a block may have
 constexpr int kRun = 4;  // outputs a thread of A computes along a row or column
 
 __device__ __forceinline__ int reflect101(int i, int n) {
@@ -393,43 +392,38 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// Blocks of `kernel` that fit the card at once, with the shared memory it
-// may ask for set to smem_bytes; both once per device.
-struct Residency {
-  int blocks[kMaxDevices] = {};
-};
-
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int threads, int smem_bytes,
-                            Residency& cache, int* blocks) {
+// Blocks of A (d = D) that fit the card at once, with the shared memory it
+// asks for allowed; both once per device.
+template <int D>
+cudaError_t resident_blocks(int* blocks) {
+  static int cache[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  if (device < kMaxDevices && cache.blocks[device] > 0) {
-    *blocks = cache.blocks[device];
+  if (device < kMaxDevices && cache[device] > 0) {
+    *blocks = cache[device];
     return cudaSuccess;
   }
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
+  err = cudaFuncSetAttribute(pyr_down_levels_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Footprint<D>::bytes);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                      smem_bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, pyr_down_levels_kernel<D>, kThreads, Footprint<D>::bytes);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   *blocks = (per_sm > 0 ? per_sm : 1) * sms;
-  if (device < kMaxDevices) cache.blocks[device] = *blocks;
+  if (device < kMaxDevices) cache[device] = *blocks;
   return cudaSuccess;
 }
 
 template <int D>
 int launch_down(const float* src, float* dst, int T, int H, int W,
                 void* stream) {
-  static Residency cache;
   int blocks = 0;
-  cudaError_t err = resident_blocks(pyr_down_levels_kernel<D>, kThreads,
-                                    Footprint<D>::bytes, cache, &blocks);
+  cudaError_t err = resident_blocks<D>(&blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   int h = H, w = W;
   for (int l = 0; l < D; ++l) {
@@ -455,59 +449,57 @@ int launch_down(const float* src, float* dst, int T, int H, int W,
 // ---------------------------------------------------------------------------
 // B: the tail of the pyramid, one block per frame, all in shared memory.
 
-struct TailOutputs {
-  float* level[kMaxTailLevels];  // (T, h_l, w_l) for the kept levels l
-};
-
+// Block t takes frame t. The kept levels go to `out` one after another,
+// each a (T, h_l, w_l) block.
 __global__ void __launch_bounds__(kTailThreads)
-pyr_tail_kernel(const float* __restrict__ src, TailOutputs out, int T, int H,
-                int W, int n_levels, int first_kept, bool wide) {
+pyr_tail_kernel(const float* __restrict__ src, float* __restrict__ out, int T,
+                int H, int W, int n_levels, int first_kept, bool wide) {
   // Levels 0..n_levels-1 of the frame, packed one after the other.
   extern __shared__ __align__(16) float pyr[];
   const int tid = threadIdx.x;
+  const int t = blockIdx.x;
   const int plane = H * W;
-  for (int t = blockIdx.x; t < T; t += gridDim.x) {
-    const float* f = src + (long long)t * plane;
-    if (wide) {
-      for (int e = 4 * tid; e < plane; e += 4 * kTailThreads)
-        copy16(pyr + e, f + e);
-    } else {
-      for (int e = tid; e < plane; e += kTailThreads) copy4(pyr + e, f + e);
+  const float* f = src + (long long)t * plane;
+  if (wide) {
+    for (int e = 4 * tid; e < plane; e += 4 * kTailThreads)
+      copy16(pyr + e, f + e);
+  } else {
+    for (int e = tid; e < plane; e += kTailThreads) copy4(pyr + e, f + e);
+  }
+  commit();
+  wait_but<0>();
+  __syncthreads();
+
+  int h = H, w = W, off = 0;
+  for (int l = 1; l < n_levels; ++l) {
+    const int hn = (h + 1) / 2, wn = (w + 1) / 2, off_n = off + h * w;
+    for (int e = tid; e < hn * wn; e += kTailThreads) {
+      const int i = e / wn, j = e - i * wn;
+      pyr[off_n + e] = down_at(pyr + off, h, w, i, j);
     }
-    commit();
-    wait_but<0>();
     __syncthreads();
+    h = hn;
+    w = wn;
+    off = off_n;
+  }
 
-    int h = H, w = W, off = 0;
-    for (int l = 1; l < n_levels; ++l) {
-      const int hn = (h + 1) / 2, wn = (w + 1) / 2, off_n = off + h * w;
-      for (int e = tid; e < hn * wn; e += kTailThreads) {
-        const int i = e / wn, j = e - i * wn;
-        pyr[off_n + e] = down_at(pyr + off, h, w, i, j);
+  h = H;
+  w = W;
+  off = 0;
+  long long kept = 0;  // where level l's (T, h, w) block starts in out
+  for (int l = 0; l + 1 < n_levels; ++l) {
+    const int hn = (h + 1) / 2, wn = (w + 1) / 2, off_n = off + h * w;
+    if (l >= first_kept) {
+      float* o = out + kept + (long long)t * h * w;
+      for (int e = tid; e < h * w; e += kTailThreads) {
+        const int i = e / w, j = e - i * w;
+        o[e] = lap_at(pyr + off, w, pyr + off_n, hn, wn, i, j);
       }
-      __syncthreads();
-      h = hn;
-      w = wn;
-      off = off_n;
+      kept += (long long)T * h * w;
     }
-
-    h = H;
-    w = W;
-    off = 0;
-    for (int l = 0; l + 1 < n_levels; ++l) {
-      const int hn = (h + 1) / 2, wn = (w + 1) / 2, off_n = off + h * w;
-      if (l >= first_kept) {
-        float* o = out.level[l] + (long long)t * h * w;
-        for (int e = tid; e < h * w; e += kTailThreads) {
-          const int i = e / w, j = e - i * w;
-          o[e] = lap_at(pyr + off, w, pyr + off_n, hn, wn, i, j);
-        }
-      }
-      h = hn;
-      w = wn;
-      off = off_n;
-    }
-    __syncthreads();  // the next frame's copies overwrite level 0
+    h = hn;
+    w = wn;
+    off = off_n;
   }
 }
 
@@ -548,35 +540,27 @@ extern "C" int pyr_down_levels_f32(const float* src, float* dst, int T, int H,
 }
 
 // The Laplacian levels [first_kept, n_levels - 2] of the n_levels-level
-// pyramid whose level 0 is the (T, H, W) video src: outs[l] is level l's
-// (T, h_l, w_l) output for those l (host array of n_levels pointers; the
-// others are not read). The whole pyramid of a frame must fit
-// kTailBudgetBytes.
-extern "C" int pyr_tail_f32(const float* src, float* const* outs, int T,
-                            int H, int W, int n_levels, int first_kept,
+// pyramid whose level 0 is the (T, H, W) video src, into out: level l's
+// (T, h_l, w_l) block after those of the kept levels before it. The whole
+// pyramid of a frame must fit a block's shared memory; the launch fails
+// where it does not.
+extern "C" int pyr_tail_f32(const float* src, float* out, int T, int H,
+                            int W, int n_levels, int first_kept,
                             void* stream) {
-  if (n_levels < 2 || n_levels > kMaxTailLevels || first_kept < 0 ||
-      first_kept > n_levels - 2)
+  if (n_levels < 2 || first_kept < 0 || first_kept > n_levels - 2)
     return static_cast<int>(cudaErrorInvalidValue);
   long long floats = 0;
-  TailOutputs out = {};
   for (int l = 0, h = H, w = W; l < n_levels;
-       ++l, h = (h + 1) / 2, w = (w + 1) / 2) {
+       ++l, h = (h + 1) / 2, w = (w + 1) / 2)
     floats += (long long)h * w;
-    if (l >= first_kept && l + 1 < n_levels) out.level[l] = outs[l];
-  }
-  if (floats * sizeof(float) > kTailBudgetBytes)
+  if (floats * sizeof(float) > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  static Residency cache;
-  int blocks = 0;
-  cudaError_t err = resident_blocks(pyr_tail_kernel, kTailThreads,
-                                    kTailBudgetBytes, cache, &blocks);
+  const int bytes = static_cast<int>(floats * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      pyr_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // One block per frame, each walking on to further frames beyond the
-  // blocks that fit the card at once.
-  const int grid = T < blocks ? T : blocks;
   const bool wide = (long long)H * W % 4 == 0 && aligned(src, 16);
-  pyr_tail_kernel<<<grid, kTailThreads, floats * sizeof(float),
+  pyr_tail_kernel<<<T, kTailThreads, bytes,
                     static_cast<cudaStream_t>(stream)>>>(
       src, out, T, H, W, n_levels, first_kept, wide);
   return static_cast<int>(cudaGetLastError());

@@ -15,7 +15,8 @@ Counterpart of ``respmon_tpu/ops/pyramid_pallas.py``:
 The kernels live in ``csrc/pyramid.cu``.  ``pyr_down``, ``pyr_tail`` and
 ``lap_level`` are the wrappers: for a CPU tensor they run the plain version
 (``ops/pyramid.py``); for a CUDA tensor they launch the kernel or raise.
-``LAUNCHES`` counts kernel launches per kernel.
+``LAUNCHES`` counts kernel launches per kernel, A's per instantiation
+(``pyr_down_levels_d1``, ``pyr_down_levels_d2``).
 """
 
 from __future__ import annotations
@@ -28,11 +29,11 @@ import torch
 from respmon_tpu_torch.ops import pyramid
 from respmon_tpu_torch.ops.pyramid import pyramid_shapes
 
-LAUNCHES = {"pyr_down_levels": 0, "pyr_tail": 0, "lap_level": 0}
-
 MAX_FUSED = 2                 # pyrDowns that one launch of A fuses
-MAX_TAIL_LEVELS = 32          # levels that one launch of B computes
 TAIL_BUDGET_BYTES = 200 * 1024  # B's shared memory, of a block's 227 KB
+
+LAUNCHES = {**{f"pyr_down_levels_d{d}": 0 for d in range(1, MAX_FUSED + 1)},
+            "pyr_tail": 0, "lap_level": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,7 +62,6 @@ def _lib():
 class Plan(NamedTuple):
     """The launches of ``laplacian_band_levels`` for one geometry."""
     tail_from: int     # s: B computes levels s..levels-1 of each frame
-    tail_bytes: int    # B's shared memory: levels s..levels-1 of one frame
     downs: Tuple[Tuple[int, int], ...]  # (level, d) of each A, in order
     laps: Tuple[int, ...]  # kept levels above s: one lap_level_f32 each
     tail: bool         # whether B runs (a kept level lies at s or below)
@@ -87,19 +87,17 @@ def plan(h: int, w: int, levels: int, skip_top: int) -> Plan:
     reaches it in fused steps; a kept level above it (``skip_top < s``)
     takes A with d = 1 for each level down to s and a ``lap_level_f32``."""
     s = next((lvl for lvl in range(levels)
-              if levels - lvl <= MAX_TAIL_LEVELS
-              and tail_bytes(h, w, levels, lvl) <= TAIL_BUDGET_BYTES),
+              if tail_bytes(h, w, levels, lvl) <= TAIL_BUDGET_BYTES),
              levels - 1)
-    size = tail_bytes(h, w, levels, s)
     if skip_top >= levels - 1:
-        return Plan(s, size, (), (), False)
+        return Plan(s, (), (), False)
     if skip_top < s:
         downs = _fused(0, skip_top) + tuple(
             (lvl, 1) for lvl in range(skip_top, s))
         laps = tuple(range(skip_top, s))
     else:
         downs, laps = _fused(0, s), ()
-    return Plan(s, size, downs, laps, s <= levels - 2)
+    return Plan(s, downs, laps, s <= levels - 2)
 
 
 def _check(x: torch.Tensor, name: str) -> None:
@@ -139,7 +137,7 @@ def pyr_down(x: torch.Tensor, d: int = 1) -> torch.Tensor:
     _raise_on(_lib().pyr_down_levels_f32(x.data_ptr(), out.data_ptr(), t_len,
                                          h, w, d, stream),
               "pyr_down_levels_f32")
-    LAUNCHES["pyr_down_levels"] += 1
+    LAUNCHES[f"pyr_down_levels_d{d}"] += 1
     return out
 
 
@@ -152,24 +150,24 @@ def pyr_tail(g: torch.Tensor, levels: int,
         return laplacian_band_levels_ref(g, levels, first_kept)
     _check(g, "pyr_tail")
     t_len, h, w = g.shape
-    if not 2 <= levels <= MAX_TAIL_LEVELS or \
-            not 0 <= first_kept <= levels - 2:
+    if not 0 <= first_kept <= levels - 2:
         raise ValueError(f"pyr_tail: levels {levels}, first kept "
                          f"{first_kept}")
     if tail_bytes(h, w, levels, 0) > TAIL_BUDGET_BYTES:
         raise ValueError(f"pyr_tail: the {levels}-level pyramid of a "
                          f"{h}x{w} frame exceeds {TAIL_BUDGET_BYTES} bytes")
-    shapes = pyramid_shapes(h, w, levels)
-    outs = tuple(torch.empty((t_len,) + shapes[lvl], dtype=g.dtype,
-                             device=g.device)
-                 for lvl in range(first_kept, levels - 1))
+    # The kept levels, one after another in one buffer.
+    shapes = [(t_len,) + hw for hw in
+              pyramid_shapes(h, w, levels)[first_kept:levels - 1]]
+    sizes = [a * b * c for a, b, c in shapes]
+    flat = torch.empty(sum(sizes), dtype=g.dtype, device=g.device)
+    outs = tuple(part.view(shape) for part, shape in
+                 zip(flat.split(sizes), shapes))
     if g.numel() == 0:
         return outs
-    ptrs = (_P * levels)(*([None] * first_kept
-                           + [o.data_ptr() for o in outs] + [None]))
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    _raise_on(_lib().pyr_tail_f32(g.data_ptr(), ptrs, t_len, h, w, levels,
-                                  first_kept, stream), "pyr_tail_f32")
+    _raise_on(_lib().pyr_tail_f32(g.data_ptr(), flat.data_ptr(), t_len, h, w,
+                                  levels, first_kept, stream), "pyr_tail_f32")
     LAUNCHES["pyr_tail"] += 1
     return outs
 

@@ -106,8 +106,9 @@ def test_cpu_wrappers_run_the_plain_version_without_launching():
         got = pyramid_cuda.laplacian_band_levels(v, levels, skip)
         want = pyramid_cuda.laplacian_band_levels_ref(v, levels, skip)
         _close(got, [w.numpy() for w in want], atol=0)
-    assert pyramid_cuda.LAUNCHES == {"pyr_down_levels": 0, "pyr_tail": 0,
-                                     "lap_level": 0}
+    assert pyramid_cuda.LAUNCHES == {"pyr_down_levels_d1": 0,
+                                     "pyr_down_levels_d2": 0,
+                                     "pyr_tail": 0, "lap_level": 0}
 
 
 def test_wrappers_reject_bad_input():

@@ -28,11 +28,6 @@ def _video(shape, seed):
     return np.random.default_rng(seed).random(shape).astype(np.float32)
 
 
-def _constant(name):
-    return int(eval(re.search(rf"constexpr int {name} = ([^;]+);",
-                              SOURCE).group(1)))
-
-
 # --- (a) the plan ----------------------------------------------------------
 
 @pytest.mark.parametrize("geometry,tail_from,downs,laps", [
@@ -58,18 +53,17 @@ def test_plan_of_the_configs(geometry, tail_from, downs, laps):
 ])
 def test_tail_bytes_against_the_budget(h, w, levels, s, size):
     p = pc.plan(h, w, levels, 4 if levels == 9 else 3)
-    assert p.tail_from == s and p.tail_bytes == size
+    assert p.tail_from == s
     assert pc.tail_bytes(h, w, levels, s) == size <= pc.TAIL_BUDGET_BYTES
     if s > 0:   # s is the first level that fits
         assert pc.tail_bytes(h, w, levels, s - 1) > pc.TAIL_BUDGET_BYTES
 
 
 def test_host_limits_are_the_kernels():
-    assert _constant("kTailBudgetBytes") == pc.TAIL_BUDGET_BYTES
-    assert _constant("kMaxTailLevels") == pc.MAX_TAIL_LEVELS
     assert pc.TAIL_BUDGET_BYTES <= 227 * 1024   # a block's shared memory
     for d in range(1, pc.MAX_FUSED + 1):
         assert f"case {d}:" in SOURCE
+        assert f"pyr_down_levels_d{d}" in pc.LAUNCHES
     assert f"case {pc.MAX_FUSED + 1}:" not in SOURCE
 
 
@@ -86,11 +80,9 @@ def test_plan_computes_every_kept_level_once(h, w, levels, skip):
     kept = list(p.laps)
     if p.tail:
         assert p.tail_from in have
-        assert levels - p.tail_from <= pc.MAX_TAIL_LEVELS
-        assert p.tail_bytes <= pc.TAIL_BUDGET_BYTES
+        assert pc.tail_bytes(h, w, levels, p.tail_from) <= pc.TAIL_BUDGET_BYTES
         kept += range(max(skip, p.tail_from), levels - 1)
     assert kept == list(range(skip, levels - 1))
-    assert p.tail_bytes == pc.tail_bytes(h, w, levels, p.tail_from)
 
 
 def test_gauss_level_fuses_at_most_two_levels():
