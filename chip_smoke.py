@@ -13,8 +13,14 @@ whole-clip path
 ``process_clip`` at 640x480 in average mode and in flow mode (Shi-Tomasi
 corners, pyramidal LK, 2x2 PCA), one 640x480 calibration with the
 band-matrix pyramid (K3) in place of the stencil one (K1), and one 1080p
-calibration, checking what comes out.  Each phase prints one JSON line;
-then the kernel table, the card's name and power limit, and last
+calibration, checking what comes out.  Then the live monitor
+(``runtime.RespiratoryMonitor``) on the same 640x480 clip, frame by frame,
+in average and in flow mode (``phase_monitor``), fed by the native frame
+ring (``phase_feeder``), and through a blackout, the error state and a
+recalibration (``phase_monitor_recovery``); the last two also split each
+measured frame's time between the motion step and the BPM estimate.  Each
+phase prints one JSON line; then the kernel table, the card's name and
+power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits 1.
 Imports nothing of JAX and nothing of the JAX package.
@@ -694,19 +700,37 @@ def phase_small_cross_check(dev):
           "bpm_max_rel_vs_cpu": rel, "constant_video_found": found})
 
 
+def _fixture(num_frames: int):
+    """The 640x480 clip of bench.py:116-125, ``num_frames`` long."""
+    from respmon_tpu_torch.io.synthetic import breathing_clip
+
+    return breathing_clip(num_frames=num_frames, height=480, width=640,
+                          fps=FPS, bpm=18.0, patch_center=(240, 320),
+                          patch_size=(80, 100), amplitude=0.12,
+                          motion_px=2.0, texture_motion=True)
+
+
 def slice_frames(dev):
-    """The 640x480 u8 fixture of bench.py:116-125 on the card."""
+    """The 640x480 u8 fixture of bench.py:116-125 on the card: frame 0
+    (the monitor's initialize step), 128 calibration frames, 1 dropped at
+    the locate, 127 measured."""
     import torch
 
     from respmon_tpu_torch.config import MonitorConfig
-    from respmon_tpu_torch.io.synthetic import breathing_clip
 
     cal_len = MonitorConfig().calibration.buffer_length
-    clip = breathing_clip(num_frames=cal_len + 1 + 128, height=480,
-                          width=640, fps=FPS, bpm=18.0,
-                          patch_center=(240, 320), patch_size=(80, 100),
-                          amplitude=0.12, motion_px=2.0, texture_motion=True)
-    return torch.from_numpy(quantize(clip)).to(dev)
+    return torch.from_numpy(quantize(_fixture(cal_len + 1 + 128))).to(dev)
+
+
+# The recovery clip: 1 + 128 calibration frames + 1 dropped, 30 measured,
+# a 15-frame blackout, then room to recalibrate (1 + 128 + 1) and to
+# measure until a BPM comes again.
+RECOVERY_FRAMES = 400
+
+
+def recovery_frames():
+    """The 640x480 u8 clip of the recovery phase, on the host."""
+    return quantize(_fixture(RECOVERY_FRAMES))
 
 
 def phase_slice(frames):
@@ -930,6 +954,346 @@ def phase_flow_profile(frames):
           "device_idle_share_unprofiled": 1.0 - device_us / 1e6 / plain_s})
 
 
+def check_k1_calibrations(launches, calibrations: int, what: str) -> None:
+    """Each 640x480 calibration of a monitor ran K1 as its plan says: one
+    A (d = 2) and one B, and nothing else of the chain."""
+    check(calibrations >= 1
+          and launches["pyr_down_levels_d2"] == calibrations
+          and launches["pyr_tail"] == calibrations
+          and launches["pyr_down_levels_d1"] == 0
+          and launches["lap_level"] == 0,
+          f"{what}: A (d = 2) and B once per calibration "
+          f"({calibrations}): {launches}")
+
+
+def _ms_stats(seconds) -> dict:
+    import numpy as np
+
+    ms = np.asarray(seconds) * 1e3
+    return {"median": float(np.median(ms)),
+            "p95": float(np.percentile(ms, 95)), "max": float(ms.max()),
+            "n": int(ms.size)}
+
+
+def drive_monitor(mon, after_step=None):
+    """Step a monitor to the end of its stream, or until
+    ``after_step(mon, steps)`` returns true.  Per step: the state it
+    started in, the state it ended in, ``step()``'s host time (it ends in a
+    host read of the frame's results) and the time a device synchronise
+    takes right after it (device work the step left behind)."""
+    import torch
+
+    steps = []
+    torch.cuda.synchronize()
+    while True:
+        before = mon.state
+        t0 = time.perf_counter()
+        more = mon.step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not more:
+            break
+        steps.append({"before": before, "after": mon.state,
+                      "step_s": t1 - t0, "left_s": t2 - t1})
+        if after_step is not None and after_step(mon, steps):
+            break
+    mon.stop_feeder()
+    mon.cap.release()
+    return steps
+
+
+def monitor_report(mon, steps) -> dict:
+    """The live loop's numbers: the calibration stall (the step that ran
+    ``locate``), per measured frame the step's host time, the measured
+    frames per second, and the Benchmarker's tags."""
+    import numpy as np
+
+    cal = [s["step_s"] for s in steps
+           if s["before"] == "calibration" and s["after"] != "calibration"]
+    measured = [s["step_s"] for s in steps if s["before"] == "measure"]
+    left = [s["left_s"] for s in steps]
+    tags = {tag: {"mean_ms": float(np.mean(v)) * 1e3 if v else None,
+                  "count": len(v)}
+            for tag, v in mon.benchmarker.ticks.items()}
+    return {"calibration_step_ms": [c * 1e3 for c in cal],
+            "measured_step_ms": _ms_stats(measured),
+            "measured_fps": len(measured) / sum(measured),
+            "sync_after_step_ms": _ms_stats(left),
+            "benchmarker": tags}
+
+
+class split_timer:
+    """Inside the ``with`` block, time each call of the monitor's motion
+    step, its BPM estimate and the estimate's two Gaussian-fit loops (the
+    float32 fit and the float64 refit of wild fits), each to the end of
+    its device work, and count each fit's LM steps (each step solves
+    ``2 * _TR_NEWTON_ITERS + 2`` 3x3 systems).  ``report()`` gives each
+    one's ms per call and the LM steps per fit."""
+
+    def __init__(self):
+        self.seconds = {"motion_step": [], "estimate_bpm": [],
+                        "gauss_fit_f32": [], "gauss_fit_f64": []}
+        self.lm_steps = {"gauss_fit_f32": [], "gauss_fit_f64": []}
+        self._solves = 0
+
+    def _timed(self, fn, name_of):
+        import torch
+
+        from respmon_tpu_torch.ops import gaussfit
+
+        def timed(*args, **kwargs):
+            name = name_of(args)
+            solves, t0 = self._solves, time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name].append(time.perf_counter() - t0)
+            if name in self.lm_steps:
+                self.lm_steps[name].append(
+                    (self._solves - solves)
+                    // (2 * gaussfit._TR_NEWTON_ITERS + 2))
+            return out
+        return timed
+
+    def __enter__(self):
+        import torch
+
+        from respmon_tpu_torch.ops import gaussfit
+        from respmon_tpu_torch.pipeline import bpm, motion
+
+        self._saved = [(motion, "measure_step", motion.measure_step),
+                       (bpm, "estimate_bpm", bpm.estimate_bpm),
+                       (gaussfit, "gaussian_fit_batch",
+                        gaussfit.gaussian_fit_batch),
+                       (gaussfit, "_solve3", gaussfit._solve3)]
+        solve3 = gaussfit._solve3
+
+        def counted_solve3(*args, **kwargs):
+            self._solves += 1
+            return solve3(*args, **kwargs)
+
+        gaussfit._solve3 = counted_solve3
+        motion.measure_step = self._timed(motion.measure_step,
+                                          lambda a: "motion_step")
+        bpm.estimate_bpm = self._timed(bpm.estimate_bpm,
+                                       lambda a: "estimate_bpm")
+        gaussfit.gaussian_fit_batch = self._timed(
+            gaussfit.gaussian_fit_batch,
+            lambda a: "gauss_fit_f64" if a[0].dtype == torch.float64
+            else "gauss_fit_f32")
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+        return False
+
+    def report(self) -> dict:
+        out = {name: _ms_stats(v) for name, v in self.seconds.items() if v}
+        for name, steps in self.lm_steps.items():
+            if steps:
+                out[f"{name}_lm_steps"] = {
+                    "median": float(statistics.median(steps)),
+                    "max": max(steps), "total": sum(steps)}
+        return out
+
+
+def make_monitor(frames, method, cfg, capture=None, **kw):
+    """The port's monitor over ``frames`` (a host numpy clip) on the card,
+    as a headless offline replay: no UI, no recording, no fps sync."""
+    from respmon_tpu_torch.io.capture import ArrayCapture
+    from respmon_tpu_torch.runtime import RespiratoryMonitor
+
+    return RespiratoryMonitor(
+        capture_target="chip_smoke", save_all_data=False, visualize=None,
+        motion_extraction_method=method, config=cfg,
+        capture=capture or ArrayCapture(frames, fps=FPS), auto_run=False,
+        sync_fps=False, **kw)
+
+
+def phase_monitor(frames, cfg=None, device=None):
+    """The live monitor on the 640x480 u8 clip (a host numpy array) in
+    average and in flow mode, against ``process_clip`` on the same card
+    (``device=None``).  Returns the launches of each run and the average
+    run's monitor."""
+    import dataclasses
+
+    import numpy as np
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.pipeline import scan
+
+    cfg = cfg or MonitorConfig()
+    launches, monitors = {}, {}
+    for method in ("average", "flow"):
+        mcfg = dataclasses.replace(cfg, motion_extraction_method=method)
+        clip = scan.process_clip(frames, FPS, mcfg, device=device)
+        mon = make_monitor(frames, method, mcfg, device=device)
+        reset_launches()
+        steps = drive_monitor(mon)
+        launches[method] = read_launches()
+        calibrations = len(mon.benchmarker.ticks["Calibration Measurement"])
+        check_k1_calibrations(launches[method], calibrations,
+                              f"the {method} monitor")
+        check(calibrations == 1, f"{method} monitor calibrated once")
+        check(mon.state == "measure", f"{method} monitor ends measuring")
+        roi = (mon.x, mon.y, mon.w, mon.h)
+        check(roi == clip.roi, f"{method} monitor ROI {roi} equals "
+              f"process_clip's {clip.roi}")
+        check(len(mon.freq) > 0 and np.isfinite(list(mon.freq)).all(),
+              f"{method} monitor: finite BPM estimates")
+        freq = np.asarray(mon.freq)
+        has = clip.measure.has_bpm.cpu().numpy()
+        clip_bpm = clip.measure.bpm.cpu().numpy()[has]
+        row = {"phase": f"monitor_{method}", "frames": list(frames.shape),
+               "roi": list(roi), "launches": launches[method],
+               "calibrations": calibrations, "bpm_count": len(freq),
+               "last_bpm": float(freq[-1]),
+               "process_clip_final_bpm": clip.final_bpm}
+        if method == "average":
+            rel = abs(freq[-1] - clip.final_bpm) / abs(clip.final_bpm)
+            check(rel <= 1e-5, f"average monitor's last BPM {freq[-1]} "
+                  f"within rtol 1e-5 of process_clip's {clip.final_bpm}")
+            row["last_bpm_rel_vs_process_clip"] = float(rel)
+        else:
+            check(mon.error_message is None,
+                  f"flow monitor: no error ({mon.error_message})")
+            tail = float(np.median(freq[-10:]))
+            clip_tail = float(np.median(clip_bpm[-10:]))
+            check(abs(tail - 18.0) <= 1.0,
+                  f"flow monitor tail median BPM {tail} within 1 of 18")
+            check(abs(tail - clip_tail) <= 0.5,
+                  f"flow monitor tail median BPM {tail} within 0.5 of "
+                  f"process_clip's {clip_tail}")
+            row.update(bpm_tail_median=tail,
+                       process_clip_bpm_tail_median=clip_tail)
+        report = monitor_report(mon, steps)
+        # The bracket of each tag ends in a host read of the device's
+        # results, so little device work is left after a step.
+        check(report["sync_after_step_ms"]["median"] <= 1.0,
+              f"{method} monitor: steps end with the device done "
+              f"({report['sync_after_step_ms']})")
+        emit({**row, **report})
+        monitors[method] = mon
+    return launches, monitors["average"]
+
+
+def phase_monitor_recovery(frames, cfg=None, device=None, blackout_at=30,
+                           blackout_len=15):
+    """Flow mode through a blackout ``blackout_at`` measured frames in,
+    ``blackout_len`` frames long, with no reset delay: the error state, a
+    recalibration and BPM again.  Returns the run's launches."""
+    import dataclasses
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.io.capture import ArrayCapture
+    from respmon_tpu_torch.io.faults import FaultInjector, FaultSchedule
+
+    cfg = dataclasses.replace(cfg or MonitorConfig(),
+                              motion_extraction_method="flow")
+    start = 1 + cfg.calibration.buffer_length + 1 + blackout_at
+    src = FaultInjector(
+        ArrayCapture(frames, fps=FPS),
+        [FaultSchedule("blackout", start=start, end=start + blackout_len)])
+    mon = make_monitor(None, "flow", cfg, capture=src,
+                       error_reset_delay=0.0, device=device)
+    seen = {"error": None, "bpm_again": None, "measure_again": None}
+
+    def after_step(mon, steps):
+        i = len(steps) - 1
+        if seen["error"] is None and mon.state == "error":
+            seen["error"] = i
+        elif seen["error"] is not None:
+            if seen["measure_again"] is None and mon.state == "measure":
+                seen["measure_again"] = i
+                seen["freq_at_recovery"] = len(mon.freq)
+            if (seen["measure_again"] is not None
+                    and seen["bpm_again"] is None
+                    and len(mon.freq) > seen["freq_at_recovery"]):
+                seen["bpm_again"] = i
+        return seen["bpm_again"] is not None   # the run ends there
+
+    reset_launches()
+    # The run also times the parts of each measured frame; their extra
+    # device synchronises add little to a step of tens of milliseconds.
+    with split_timer() as split:
+        steps = drive_monitor(mon, after_step)
+    launches = read_launches()
+    calibrations = len(mon.benchmarker.ticks["Calibration Measurement"])
+    check(seen["error"] is not None, "the blackout led to the error state")
+    check(seen["error"] >= start, "the error came with the blackout")
+    check(seen["bpm_again"] is not None,
+          f"measuring again with a new BPM after the error: {seen}")
+    check(calibrations >= 2, f"recalibrated ({calibrations} calibrations)")
+    check_k1_calibrations(launches, calibrations, "the recovery run")
+    recover_s = sum(s["step_s"] for s in steps[start:seen["bpm_again"] + 1])
+    report = monitor_report(mon, steps)
+    emit({"phase": "monitor_recovery_flow", "frames": list(frames.shape),
+          "blackout_frames": [start, start + blackout_len],
+          "error_step": seen["error"],
+          "measure_again_step": seen["measure_again"],
+          "first_bpm_again_step": seen["bpm_again"],
+          "fault_to_bpm_frames": seen["bpm_again"] - start + 1,
+          "frames_stepped": len(steps),
+          "fault_to_bpm_s": recover_s, "calibrations": calibrations,
+          "launches": launches, "roi_after": [mon.x, mon.y, mon.w, mon.h],
+          "error_message": mon.error_message, **report,
+          "split_ms": split.report()})
+    return launches
+
+
+def phase_feeder(frames, average_mon, cfg=None, device=None, measured=60):
+    """The native frame ring under the monitor: the library built from the
+    checkout, every frame through a lossless ``FrameFeeder`` in order, and
+    the average monitor fed through it over the clip's first ``measured``
+    measured frames, where it must be where the direct run was then."""
+    import numpy as np
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.io.capture import ArrayCapture
+    from respmon_tpu_torch.io.native import load_native
+    from respmon_tpu_torch.runtime.feeder import FrameFeeder
+
+    lib = load_native()
+    check(lib is not None, "the native frame ring library loaded")
+    feeder = FrameFeeder(ArrayCapture(frames, fps=FPS), capacity=4,
+                         lossless=True, dtype=frames.dtype).start()
+    check(feeder.ring._lib is not None, "the feeder's ring is native")
+    n, t0 = 0, time.perf_counter()
+    while True:
+        frame, seq = feeder.next_frame(latest=False)
+        if frame is None:
+            break
+        check(seq == n and np.array_equal(frame, frames[n]),
+              f"frame {n} arrived in order, intact (seq {seq})")
+        n += 1
+    ring_s = time.perf_counter() - t0
+    feeder.stop()
+    check(n == len(frames), f"all {len(frames)} frames arrived ({n})")
+
+    cfg = cfg or MonitorConfig()
+    head = frames[:1 + cfg.calibration.buffer_length + 1 + measured]
+    mon = make_monitor(head, "average", cfg, use_feeder=True,
+                       feeder_latest=False, device=device)
+    # The run also times the parts of each measured frame, as the recovery
+    # phase does in flow mode.
+    with split_timer() as split:
+        steps = drive_monitor(mon)
+    roi = (mon.x, mon.y, mon.w, mon.h)
+    want = (average_mon.x, average_mon.y, average_mon.w, average_mon.h)
+    check(roi == want, f"fed monitor ROI {roi} equals the direct one's "
+          f"{want}")
+    check(0 < len(mon.freq) <= len(average_mon.freq)
+          and list(mon.freq) == list(average_mon.freq)[:len(mon.freq)],
+          "fed monitor BPM trace equals the direct one's up to its end")
+    check(mon.frames_dropped == 0, "lossless feeder dropped nothing")
+    emit({"phase": "feeder", "library": lib._name, "frames": n,
+          "ring_s": ring_s, "roi": list(roi),
+          "last_bpm": float(mon.freq[-1]),
+          "measured_step_ms": monitor_report(mon, steps)[
+              "measured_step_ms"], "split_ms": split.report()})
+
+
 def phase_1080p(dev):
     import torch
 
@@ -990,7 +1354,12 @@ def main() -> int:
     k3_launches = phase_k3_locate(frames, roi)
     flow_launches = phase_flow_slice(frames, roi)
     phase_flow_profile(frames)
+    host_frames = frames.cpu().numpy()
     del frames
+    monitor_launches, average_mon = phase_monitor(host_frames)
+    phase_feeder(host_frames, average_mon)
+    del host_frames
+    recovery_launches = phase_monitor_recovery(recovery_frames())
     launches_1080p = phase_1080p(dev)
 
     # Each path was driven with every count at 0 just before it and read
@@ -1001,7 +1370,10 @@ def main() -> int:
     paths = {"slice_640x480": avg_launches, "flow_640x480": flow_launches,
              "k3_locate_640x480": k3_launches,
              "k1_parity_4x480x640_l9s1": lap_path,
-             "locate_1080p": launches_1080p}
+             "locate_1080p": launches_1080p,
+             "monitor_640x480_average": monitor_launches["average"],
+             "monitor_640x480_flow": monitor_launches["flow"],
+             "monitor_recovery_640x480": recovery_launches}
     own_path = {"pyr_down_levels_d2": "flow_640x480",
                 "pyr_down_levels_d1": "locate_1080p",
                 "pyr_tail": "flow_640x480",

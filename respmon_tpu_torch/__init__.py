@@ -1,10 +1,13 @@
 """respmon_tpu_torch — the PyTorch/CUDA port of ``respmon_tpu``.
 
 Same layout and public functions as the JAX package (``ops/...``,
-``pipeline/...``), tested against it on the CPU and run on an NVIDIA
-Hopper GPU, where the Pallas pyramid kernels are hand-written CUDA
-(``csrc/pyramid.cu``).  Covered so far: the whole-clip average-mode path
-``pipeline.scan.process_clip`` / ``process_clip_auto``.
+``pipeline/...``, ``runtime/...``), tested against it on the CPU and run
+on an NVIDIA Hopper GPU, where the Pallas pyramid kernels are hand-written
+CUDA (``csrc/pyramid.cu``, ``csrc/band_mm.cu``).  Covered so far: the live
+single-stream monitor ``runtime.RespiratoryMonitor`` with its host side
+(``io/``, ``viz/``, ``utils/bench``) and CLI (``python -m
+respmon_tpu_torch``), and the whole-clip path ``pipeline.scan.process_clip``
+/ ``process_clip_auto``, in average and flow mode.
 
 Precision policy (the port's counterpart of the JAX package's
 ``Precision.HIGHEST`` rule): float32 matrix products and convolutions run

@@ -1,1 +1,2 @@
-"""Frame sources of the port; so far the synthetic known-BPM generator."""
+"""Host-side I/O of the port: capture sources, fault injection, session
+recording, the native frame ring and the synthetic known-BPM generator."""

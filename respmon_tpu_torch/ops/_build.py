@@ -1,12 +1,15 @@
-"""Build and load the port's CUDA kernels at first use.
+"""Build and load the port's native libraries at first use.
 
-``nvcc`` compiles ``respmon_tpu_torch/csrc/<name>.cu`` into a shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
-named by a hash of the source and flags, under ``build/respmon_tpu_torch/``
-at the root of the checkout.  The library is loaded with ``ctypes``.
+``nvcc`` compiles ``respmon_tpu_torch/csrc/<name>.cu`` (the CUDA kernels)
+and the host C++ compiler ``respmon_tpu_torch/csrc/<name>.cpp`` (the frame
+ring of ``io/native``) into shared libraries with a plain C interface (no
+PyTorch headers, so a build takes seconds), each named by a hash of its
+source and flags, under ``build/respmon_tpu_torch/`` at the root of the
+checkout.  A library is loaded with ``ctypes``.
 
-Importing this module needs no CUDA toolkit: the build runs only when a
-CUDA tensor first reaches a kernel (``load``).
+Importing this module needs no toolchain: a CUDA build runs only when a
+CUDA tensor first reaches a kernel (``load``), the host build when the
+frame ring is first made (``load("resp_native", ".cpp")``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ BUILD_DIR = _PKG.parent / "build" / "respmon_tpu_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+# No -march=native: a library is named by source and flags only, so it must
+# run on any x86-64 host that finds it.
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra")
+FLAGS = {".cu": NVCC_FLAGS, ".cpp": CXX_FLAGS}
 
 _LOADED: dict = {}
 
@@ -40,32 +47,47 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+def find_cxx() -> str:
+    """Path of the host C++ compiler: $CXX, then ``c++`` (the one ``nvcc``
+    calls), then ``g++``."""
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler found (c++, g++): the frame ring of "
+                       "respmon_tpu_torch needs one")
+
+
+def library_path(name: str, source: str = ".cu") -> Path:
+    src = (CSRC / f"{name}{source}").read_bytes()
+    digest = hashlib.sha256(src + " ".join(FLAGS[source]).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same hash exists."""
-    out = library_path(name)
+def build(name: str, source: str = ".cu") -> Path:
+    """Compile ``csrc/<name><source>`` (``.cu`` with nvcc, ``.cpp`` with the
+    host C++ compiler) unless a library of the same hash exists."""
+    out = library_path(name, source)
     if out.is_file():
         return out
+    compiler = find_nvcc() if source == ".cu" else find_cxx()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [compiler, *FLAGS[source], "-o", str(tmp),
+           str(CSRC / f"{name}{source}")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"{compiler} failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``, once per process."""
-    lib = _LOADED.get(name)
+def load(name: str, source: str = ".cu") -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name><source>``, once per
+    process."""
+    lib = _LOADED.get((name, source))
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _LOADED[name] = lib
+        lib = ctypes.CDLL(str(build(name, source)))
+        _LOADED[(name, source)] = lib
     return lib

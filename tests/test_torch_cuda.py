@@ -244,3 +244,32 @@ def test_flow_process_clip_card_matches_cpu(dev):
     np.testing.assert_allclose(got.measure.samples.cpu().numpy()[:8],
                                want.measure.samples.numpy()[:8], rtol=0,
                                atol=1e-3)
+
+
+def test_monitor_card_matches_cpu(dev):
+    # The live monitor on the card (its default) against the CPU, frame
+    # for frame: the same state after every step, ROI and BPM trace.
+    from respmon_tpu_torch.io.capture import ArrayCapture
+    from respmon_tpu_torch.runtime import RespiratoryMonitor
+
+    clip = breathing_clip(num_frames=64 + 1 + 60, height=120, width=160,
+                          fps=10.0, bpm=18.0, patch_center=(60, 80),
+                          patch_size=(30, 40), amplitude=0.12)
+    runs = []
+    for device in (None, "cpu"):
+        mon = RespiratoryMonitor(
+            capture=ArrayCapture(clip, fps=10.0), visualize=None,
+            save_all_data=False, sync_fps=False, auto_run=False,
+            config=MonitorConfig(calibration=CAL), device=device)
+        trace = []
+        while mon.step():
+            trace.append(mon.state)
+        runs.append((mon, trace))
+    (card, card_trace), (cpu, cpu_trace) = runs
+    assert card.device.type == "cuda"
+    assert card._measure_state.data.device.type == "cuda"
+    assert card_trace == cpu_trace and card.state == "measure"
+    assert (card.x, card.y, card.w, card.h) == (cpu.x, cpu.y, cpu.w, cpu.h)
+    assert len(card.freq) == len(cpu.freq) > 0
+    np.testing.assert_allclose(np.asarray(card.freq), np.asarray(cpu.freq),
+                               rtol=1e-5)

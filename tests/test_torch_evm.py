@@ -159,3 +159,34 @@ def test_locate_not_found_on_constant_video():
     got = tevm.locate(torch.from_numpy(vid), 10.0, cfg)
     assert not bool(got.found)
     assert not bool(jevm.locate(jnp.asarray(vid), 10.0, cfg).found)
+
+
+def test_locate_verbose_equals_locate_and_the_jax_verbose(clip, caplog):
+    # The per-stage timed variant (reference transforms.py verbose=True):
+    # the port's locate bit for bit, the JAX package's verbose locate in
+    # bbox, heatmap and threshold, and one log line per stage.
+    import logging
+
+    vid = torch.from_numpy(clip)
+    with caplog.at_level(logging.INFO,
+                         logger="respmon_tpu_torch.pipeline.evm"):
+        got = tevm.locate_verbose(vid, 10.0, CFG)
+    want = tevm.locate(vid, 10.0, CFG)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    jax_got = jevm.locate_verbose(jnp.asarray(clip), 10.0, CFG)
+    assert bool(got.found) and bool(jax_got.found)
+    assert _bbox(got) == _bbox(jax_got)
+    assert np.array_equal(got.heatmap_u8.numpy(),
+                          np.asarray(jax_got.heatmap_u8))
+    assert np.array_equal(got.thresh.numpy(), np.asarray(jax_got.thresh))
+    text = caplog.text
+    kept = CFG.pyramid_levels - 1 - CFG.skip_levels_at_top
+    assert text.count("create_laplacian_video_pyramid") == 1
+    assert text.count("temporal_bandpass_filter") == kept
+    assert text.count("collapse_laplacian_video_pyramid") == 1
+    assert text.count("Frame Average") == kept + 2
+    evm_v = tevm.eulerian_magnification_bandpass_verbose(vid, 10.0, CFG)
+    evm_p = tevm.eulerian_magnification_bandpass(vid, 10.0, CFG)
+    assert torch.equal(evm_v.raw, evm_p.raw)
+    assert torch.equal(evm_v.masked, evm_p.masked)
