@@ -18,9 +18,16 @@ calibration, checking what comes out.  Then the live monitor
 in average and in flow mode (``phase_monitor``), fed by the native frame
 ring (``phase_feeder``), and through a blackout, the error state and a
 recalibration (``phase_monitor_recovery``); the last two also split each
-measured frame's time between the motion step and the BPM estimate.  Each
-phase prints one JSON line; then the kernel table, the card's name and
-power limit, and last
+measured frame's time between the motion step and the BPM estimate.  The
+streaming-ROI mode: K1 at T = 1, the kernel call of every frame the rolling
+rings absorb (``phase_streaming_kernels``), the streaming localizer on a
+640x480 moving subject (``phase_streaming``), the monitor re-locking onto a
+drifting subject in both modes (``phase_monitor_streaming``) and its warm
+recovery through the blackout (``phase_monitor_warm_recovery``); and the
+IIR temporal filter (``temporal_filter="iir"``) in the 120x160 cross-check
+and a 640x480 calibration (``phase_iir_locate``).  Each phase prints one
+JSON line; then each phase's seconds, the kernel table, the card's name
+and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits 1.
 Imports nothing of JAX and nothing of the JAX package.
@@ -37,6 +44,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 FPS = 10.0
+TIME_BUDGET_S = 900   # the whole script, kernel builds included
 REPEATS = 20
 KERNEL_CALLS = 10   # calls in a row per reading of a kernel's time, see cuda_ms
 PYRAMID_CU = "respmon_tpu_torch/csrc/pyramid.cu"
@@ -103,6 +111,14 @@ def wall_s(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def host_us_per_call(call, n: int = 200) -> float:
+    """The host's time to make one call, over ``n`` calls made without
+    waiting for the card."""
+    call()
+    _, seconds = wall_s(lambda: [call() for _ in range(n)])
+    return seconds / n * 1e6
 
 
 def graph_ms(fn, calls: int = 1) -> float:
@@ -584,14 +600,11 @@ def phase_kernels_k3(dev):
     # card, called many times without waiting for it.
     tiny = torch.rand((2, 8, 8), generator=gen, device=dev)
     tiny_op = pm.band_operator(pm._np_down_matrix(8), "left", dev)
-    host_us = {}
-    for what, call in [
-            ("band_left", lambda: pm.band_left(tiny_op, tiny)),
-            ("torch.matmul", lambda: torch.matmul(tiny_op.matrix, tiny))]:
-        call()
-        _, seconds = wall_s(lambda: [call() for _ in range(2000)])
-        host_us[what] = seconds / 2000 * 1e6
-    emit({"phase": "host_us_per_call", **host_us})
+    emit({"phase": "host_us_per_call",
+          "band_left": host_us_per_call(
+              lambda: pm.band_left(tiny_op, tiny), 2000),
+          "torch.matmul": host_us_per_call(
+              lambda: torch.matmul(tiny_op.matrix, tiny), 2000)})
 
     for kern in kernels:
         # torch.matmul is both the plain version and the one library call
@@ -674,7 +687,10 @@ def _bpm_checks(m, cfg):
 
 def phase_small_cross_check(dev):
     """The fixture of the CPU parity tests on the card against the CPU
-    (the plain path the tests hold against the JAX package)."""
+    (the plain path the tests hold against the JAX package), with the FFT
+    and with the IIR temporal filter."""
+    import dataclasses
+
     import torch
 
     from respmon_tpu_torch.config import CalibrationConfig, MonitorConfig
@@ -691,13 +707,20 @@ def phase_small_cross_check(dev):
           "process_clip(numpy) runs on the card by default")
     on_cpu = scan.process_clip(clip, FPS, cfg, device="cpu")
     rel = _same_run(on_card, on_cpu, "120x160 card vs CPU")
+    # The IIR temporal filter: the same ROI, has_bpm and BPM on the card.
+    iir = dataclasses.replace(cfg, calibration=dataclasses.replace(
+        cfg.calibration, temporal_filter="iir"))
+    iir_card = scan.process_clip(clip, FPS, iir)
+    iir_cpu = scan.process_clip(clip, FPS, iir, device="cpu")
+    rel_iir = _same_run(iir_card, iir_cpu, "120x160 IIR card vs CPU")
 
     const = torch.full((32, 48, 64), 0.5, device=dev)
     found = bool(evm.locate(const, FPS, CalibrationConfig(
         pyramid_levels=4, skip_levels_at_top=1, buffer_length=32)).found)
     check(not found, "constant video gives found=False on the card")
     emit({"phase": "small_cross_check", "roi": on_card.roi,
-          "bpm_max_rel_vs_cpu": rel, "constant_video_found": found})
+          "bpm_max_rel_vs_cpu": rel, "constant_video_found": found,
+          "iir_roi": iir_card.roi, "iir_bpm_max_rel_vs_cpu": rel_iir})
 
 
 def _fixture(num_frames: int):
@@ -721,6 +744,10 @@ def slice_frames(dev):
     cal_len = MonitorConfig().calibration.buffer_length
     return torch.from_numpy(quantize(_fixture(cal_len + 1 + 128))).to(dev)
 
+
+# The live monitor's clip: frame 0, 128 calibration frames, 1 dropped, 96
+# measured.
+MONITOR_FRAMES = 1 + 128 + 1 + 96
 
 # The recovery clip: 1 + 128 calibration frames + 1 dropped, 30 measured,
 # a 15-frame blackout, then room to recalibrate (1 + 128 + 1) and to
@@ -928,7 +955,9 @@ def phase_flow_slice(frames, roi):
 
 def phase_flow_profile(frames):
     """One profiler pass over a warm flow-mode process_clip: launches and
-    the device's busy share."""
+    the device's busy share.  The profiler records the device's activity
+    only: the host ops' events would add a million more for it to gather
+    and take minutes, and nothing here reads them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -937,8 +966,7 @@ def phase_flow_profile(frames):
 
     cfg = MonitorConfig(motion_extraction_method="flow")
     _, plain_s = wall_s(lambda: scan.process_clip(frames, FPS, cfg))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, profiled_s = wall_s(lambda: scan.process_clip(frames, FPS, cfg))
     n_kernels = 0
     device_us = 0.0
@@ -1026,14 +1054,16 @@ def monitor_report(mon, steps) -> dict:
 class split_timer:
     """Inside the ``with`` block, time each call of the monitor's motion
     step, its BPM estimate and the estimate's two Gaussian-fit loops (the
-    float32 fit and the float64 refit of wild fits), each to the end of
-    its device work, and count each fit's LM steps (each step solves
-    ``2 * _TR_NEWTON_ITERS + 2`` 3x3 systems).  ``report()`` gives each
-    one's ms per call and the LM steps per fit."""
+    float32 fit and the float64 refit of wild fits), and in streaming-ROI
+    mode each absorb into the rings, each localize over them and each
+    re-lock, each to the end of its device work; and count each fit's LM
+    steps (each step solves ``2 * _TR_NEWTON_ITERS + 2`` 3x3 systems).
+    ``report()`` gives each one's ms per call and the LM steps per fit."""
 
     def __init__(self):
         self.seconds = {"motion_step": [], "estimate_bpm": [],
-                        "gauss_fit_f32": [], "gauss_fit_f64": []}
+                        "gauss_fit_f32": [], "gauss_fit_f64": [],
+                        "absorb": [], "localize": [], "relock": []}
         self.lm_steps = {"gauss_fit_f32": [], "gauss_fit_f64": []}
         self._solves = 0
 
@@ -1059,13 +1089,18 @@ class split_timer:
         import torch
 
         from respmon_tpu_torch.ops import gaussfit
-        from respmon_tpu_torch.pipeline import bpm, motion
+        from respmon_tpu_torch.pipeline import bpm, motion, streaming
 
         self._saved = [(motion, "measure_step", motion.measure_step),
                        (bpm, "estimate_bpm", bpm.estimate_bpm),
                        (gaussfit, "gaussian_fit_batch",
                         gaussfit.gaussian_fit_batch),
-                       (gaussfit, "_solve3", gaussfit._solve3)]
+                       (gaussfit, "_solve3", gaussfit._solve3),
+                       (streaming, "streaming_absorb",
+                        streaming.streaming_absorb),
+                       (streaming, "_localize_window",
+                        streaming._localize_window),
+                       (motion, "relock_state", motion.relock_state)]
         solve3 = gaussfit._solve3
 
         def counted_solve3(*args, **kwargs):
@@ -1081,6 +1116,12 @@ class split_timer:
             gaussfit.gaussian_fit_batch,
             lambda a: "gauss_fit_f64" if a[0].dtype == torch.float64
             else "gauss_fit_f32")
+        streaming.streaming_absorb = self._timed(streaming.streaming_absorb,
+                                                 lambda a: "absorb")
+        streaming._localize_window = self._timed(streaming._localize_window,
+                                                 lambda a: "localize")
+        motion.relock_state = self._timed(motion.relock_state,
+                                          lambda a: "relock")
         return self
 
     def __exit__(self, *exc):
@@ -1182,7 +1223,8 @@ def phase_monitor_recovery(frames, cfg=None, device=None, blackout_at=30,
                            blackout_len=15):
     """Flow mode through a blackout ``blackout_at`` measured frames in,
     ``blackout_len`` frames long, with no reset delay: the error state, a
-    recalibration and BPM again.  Returns the run's launches."""
+    recalibration and BPM again.  Returns the run's launches and the
+    frames from the fault to the first BPM after it."""
     import dataclasses
 
     from respmon_tpu_torch.config import MonitorConfig
@@ -1239,7 +1281,7 @@ def phase_monitor_recovery(frames, cfg=None, device=None, blackout_at=30,
           "launches": launches, "roi_after": [mon.x, mon.y, mon.w, mon.h],
           "error_message": mon.error_message, **report,
           "split_ms": split.report()})
-    return launches
+    return launches, seen["bpm_again"] - start + 1
 
 
 def phase_feeder(frames, average_mon, cfg=None, device=None, measured=60):
@@ -1294,6 +1336,371 @@ def phase_feeder(frames, average_mon, cfg=None, device=None, measured=60):
               "measured_step_ms"], "split_ms": split.report()})
 
 
+def k1_bound(t_len: int, h: int, w: int, levels: int, skip: int) -> dict:
+    """The bound of one K1 call: the frames read once and the kept levels
+    written once; 54 operations per pyrDown output of every level, 17 per
+    kept Laplacian output (as ``phase_kernels`` counts them)."""
+    from respmon_tpu_torch.ops.pyramid import pyramid_shapes
+
+    sizes = [t_len * hh * ww for hh, ww in pyramid_shapes(h, w, levels)]
+    kept = sum(sizes[skip:levels - 1])
+    return bound(4 * (sizes[0] + kept), 54 * sum(sizes[1:]) + 17 * kept)
+
+
+def phase_streaming_kernels(dev):
+    """K1 at T = 1, the call of every frame the streaming rings absorb, at
+    640x480 and 1080p (L9/S4): the plan's launches, bit-equality with the
+    plain version, ms from CUDA events and from a graph, the host's time
+    per call.  Returns the two kernel rows and the 1080p call's
+    launches."""
+    import torch
+
+    from respmon_tpu_torch.ops import pyramid_cuda as pc
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows, launches_1080p = [], None
+    for h, w, path in [(480, 640, "monitor_streaming_640x480_average"),
+                       (1080, 1920, "streaming_kernels_1x1080x1920")]:
+        levels, skip = 9, 4
+        v = torch.rand((1, h, w), generator=gen, device=dev)
+        reset_launches()
+        got = pc.laplacian_band_levels(v, levels, skip)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        planned = planned_launches(h, w, levels, skip)
+        check({k: launches[k] for k in planned} == planned
+              and launches["pyr_down_levels_d2"] == 1
+              and launches["pyr_tail"] == 1
+              and launches["pyr_down_levels_d1"] == int(h == 1080),
+              f"K1 (1,{h},{w}) launched A (d = 2){' + A (d = 1)' * (h == 1080)}"
+              f" + B, as planned: {launches}")
+        if h == 1080:
+            launches_1080p = launches
+        err = max_abs(got, pc.laplacian_band_levels_ref(v, levels, skip))
+        check(err == 0.0, f"K1 (1,{h},{w}) equals its plain version bit "
+              f"for bit (max |d| {err})")
+
+        def call():
+            return pc.laplacian_band_levels(v, levels, skip)
+
+        row = {"name": "laplacian_band_levels (K1 at T = 1)",
+               "kernels": ["pyr_down_levels_f32", "pyr_tail_f32"],
+               "route": "cuda", "source": PYRAMID_CU,
+               "replaces": f"{PALLAS}:314", "counter": "pyr_tail",
+               "path": path, "shape": [1, h, w], "levels": levels,
+               "skip": skip, "plan": pc.plan(h, w, levels, skip)._asdict(),
+               "plan_launches": launches, "max_abs_err": err,
+               **kernel_times(call, lambda: pc.laplacian_band_levels_ref(
+                   v, levels, skip), graph=True),
+               "host_us_per_call": host_us_per_call(call),
+               **k1_bound(1, h, w, levels, skip), "library_ms": None}
+        emit({"phase": "streaming_kernels", **row})
+        rows.append(row)
+        del v, got
+    return rows, launches_1080p
+
+
+# The streaming clips: the 640x480 u8 fixture's breathing patch drifting
+# (dy, dx) = (30, 60) px over MONITOR_STREAM_FRAMES frames (frame 0, 128
+# calibration frames, 1 dropped, 64 measured), from (225, 290) to
+# (255, 350).
+MONITOR_STREAM_FRAMES = 1 + 128 + 1 + 64
+STREAM_START = (225, 290)
+STREAM_DRIFT = (30.0, 60.0)
+
+
+def streaming_frames(num_frames=MONITOR_STREAM_FRAMES, height=480,
+                     width=640, start=STREAM_START, drift=STREAM_DRIFT,
+                     patch_size=(80, 100)):
+    """The u8 moving-subject clip of the streaming phases, on the host."""
+    from respmon_tpu_torch.io.synthetic import breathing_clip
+
+    return quantize(breathing_clip(
+        num_frames=num_frames, height=height, width=width, fps=FPS,
+        bpm=18.0, patch_center=start, patch_size=patch_size, amplitude=0.12,
+        motion_px=2.0, texture_motion=True, drift_px=drift))
+
+
+def phase_streaming(dev, cfg=None, static=None, moving=None):
+    """The streaming localizer on the card: over a static 128-frame window
+    it finds ``locate``'s bbox; over the moving clip every localize equals
+    the plain-pyramid route in bbox and heatmap, and the coarse localize's
+    box holds the full-resolution box's centre.  Times an absorb and a
+    localize.  Returns the launches of the moving run."""
+    import torch
+
+    from respmon_tpu_torch.config import CalibrationConfig
+    from respmon_tpu_torch.pipeline import evm, streaming
+
+    cfg = cfg or CalibrationConfig()
+    t_len = cfg.buffer_length
+    if static is None:
+        static = quantize(_fixture(t_len))
+    if moving is None:
+        moving = streaming_frames()[1:]
+    static = torch.from_numpy(static).to(dev)
+    h, w = static.shape[1:]
+    state = streaming.init_streaming_state(h, w, cfg, device=dev)
+    for frame in static[:-1]:
+        state = streaming.streaming_absorb(state, frame, cfg)
+    state, res = streaming.streaming_update(state, static[-1], FPS, cfg)
+    want = evm.locate(static, FPS, cfg)
+    check(bool(res.ready) and bool(res.found) and bool(want.found)
+          and _bbox(res) == _bbox(want),
+          f"streaming bbox {_bbox(res)} over a static window equals "
+          f"locate's {_bbox(want)}")
+    static_bbox = _bbox(res)
+    del static, state
+
+    frames = torch.from_numpy(moving).to(dev)
+    reset_launches()
+    state = streaming.init_streaming_from_buffer(frames[:t_len], cfg)
+    with pyramid_route():
+        plain = streaming.init_streaming_from_buffer(frames[:t_len], cfg)
+    boxes, absorb_s, localize_s = [], [], []
+    for i in range(t_len, frames.shape[0]):
+        state, absorb = wall_s(lambda: streaming.streaming_absorb(
+            state, frames[i], cfg))
+        absorb_s.append(absorb)
+        with pyramid_route():
+            plain = streaming.streaming_absorb(plain, frames[i], cfg)
+        if (i - t_len + 1) % 8:
+            continue
+        res, seconds = wall_s(lambda: streaming._localize_window(
+            state, (h, w), torch.float32, FPS, cfg, False))
+        localize_s.append(seconds)
+        ref = streaming._localize_window(plain, (h, w), torch.float32, FPS,
+                                         cfg, False)
+        check(bool(res.found) and _bbox(res) == _bbox(ref)
+              and torch.equal(res.heatmap_u8, ref.heatmap_u8),
+              f"localize at frame {i}: {_bbox(res)} equals the plain "
+              f"route's {_bbox(ref)}, heatmap too")
+        boxes.append(_bbox(res))
+    launches = read_launches()
+    calls = 1 + frames.shape[0] - t_len
+    planned = planned_launches(h, w, cfg.pyramid_levels,
+                               cfg.skip_levels_at_top)
+    check({k: launches[k] for k in planned}
+          == {k: n * calls for k, n in planned.items()},
+          f"one K1 warm start and one K1 per absorbed frame ({calls} "
+          f"calls, each {planned}): {launches}")
+    coarse = streaming._localize_window(state, (h, w), torch.float32, FPS,
+                                        cfg, True)
+    x, y, bw, bh = _bbox(coarse)
+    fx, fy, fw, fh = boxes[-1]
+    check(bool(coarse.found) and x <= fx + fw / 2 <= x + bw
+          and y <= fy + fh / 2 <= y + bh,
+          f"the coarse box {_bbox(coarse)} holds the centre of the full "
+          f"box {boxes[-1]}")
+    emit({"phase": "streaming_640x480", "static_bbox": static_bbox,
+          "moving_frames": list(frames.shape), "bboxes": boxes,
+          "coarse_bbox": _bbox(coarse), "launches": launches,
+          "absorb_ms": _ms_stats(absorb_s),
+          "localize_ms": _ms_stats(localize_s)})
+    return launches
+
+
+def check_k1_streaming(launches, mon, what: str) -> None:
+    """A streaming monitor ran K1 once per cold locate and per warm start
+    of its rings (T = 128) and once per frame its rings absorbed (T = 1),
+    as read from the monitor's own counters; each call launched what its
+    plan makes (A d = 2 and B at 640x480)."""
+    cal = mon.config.calibration
+    cold = (len(mon.benchmarker.ticks["Calibration Measurement"])
+            - mon.streaming_absorbed["calibration"])
+    calls = cold + mon.streaming_starts + sum(
+        mon.streaming_absorbed.values())
+    planned = planned_launches(mon.height, mon.width, cal.pyramid_levels,
+                               cal.skip_levels_at_top)
+    check(cold >= 1 and mon.streaming_starts == cold
+          and {k: launches[k] for k in planned}
+          == {k: n * calls for k, n in planned.items()},
+          f"{what}: K1 {calls} times (2 x {cold} cold calibrations + "
+          f"{mon.streaming_absorbed} frames absorbed), each {planned}: "
+          f"{launches}")
+
+
+def phase_monitor_streaming(frames, cfg=None, device=None,
+                            final=(STREAM_START[0] + STREAM_DRIFT[0],
+                                   STREAM_START[1] + STREAM_DRIFT[1])):
+    """The monitor in streaming-ROI mode (default interval 8, drift 4 px)
+    on the drifting clip (a host numpy array), in average and flow mode:
+    it re-locks (at least twice in average mode, once in flow mode), keeps
+    the subject's final centre inside the final ROI (average mode) and
+    finite samples (flow mode), never errs, and K1 launches as the
+    monitor's counters imply.  ``final`` is the subject's (y, x) centre on
+    the last frame.  Returns the launches of each run."""
+    import dataclasses
+
+    import numpy as np
+
+    from respmon_tpu_torch.config import MonitorConfig
+
+    cfg = dataclasses.replace(cfg or MonitorConfig(), streaming_roi=True)
+    launches = {}
+    for method in ("average", "flow"):
+        mcfg = dataclasses.replace(cfg, motion_extraction_method=method)
+        mon = make_monitor(frames, method, mcfg, device=device)
+        trail = []
+
+        def after_step(mon, steps):
+            trail.append((mon.relocks, [mon.x, mon.y, mon.w, mon.h]))
+            return False
+
+        reset_launches()
+        with split_timer() as split:
+            steps = drive_monitor(mon, after_step)
+        launches[method] = read_launches()
+        check_k1_streaming(launches[method], mon, f"the {method} monitor")
+        check(mon.state == "measure" and mon.error_message is None,
+              f"{method} streaming monitor: no error ({mon.error_message})")
+        roi = [mon.x, mon.y, mon.w, mon.h]
+        if method == "average":
+            check(mon.relocks >= 2, f"average: {mon.relocks} re-locks")
+            fy, fx = final
+            check(mon.x <= fx <= mon.x + mon.w and mon.y <= fy
+                  <= mon.y + mon.h,
+                  f"the subject's final centre {final} lies in the final "
+                  f"ROI {roi}")
+        else:
+            check(mon.relocks >= 1, f"flow: {mon.relocks} re-locks")
+            check(np.isfinite(np.asarray(mon.data, float)).all(),
+                  "flow streaming monitor: every sample finite")
+        relock_steps = [i for i in range(1, len(trail))
+                        if trail[i][0] > trail[i - 1][0]]
+        measuring = next(i for i, s in enumerate(steps)
+                         if s["after"] == "measure")
+        emit({"phase": f"monitor_streaming_{method}",
+              "frames": list(frames.shape), "relocks": mon.relocks,
+              "relock_steps": relock_steps,
+              # The calibrated ROI, then the ROI after each re-lock.
+              "rois": [trail[measuring][1]]
+              + [trail[i][1] for i in relock_steps],
+              "final_subject_centre_yx": list(final),
+              "streaming_absorbed": mon.streaming_absorbed,
+              "streaming_starts": mon.streaming_starts,
+              "launches": launches[method], "bpm_count": len(mon.freq),
+              "last_bpm": float(mon.freq[-1]) if mon.freq else None,
+              **monitor_report(mon, steps), "split_ms": split.report()})
+    return launches
+
+
+def phase_monitor_warm_recovery(frames, cfg=None, device=None,
+                                blackout_at=30, blackout_len=15,
+                                cold_fault_to_bpm=None):
+    """``phase_monitor_recovery``'s blackout in streaming-ROI mode: the
+    rings absorb the error wait's frames and the recalibration localizes
+    from them (warm).  Records the frames and seconds from the fault to
+    measurement and to the first BPM beside the cold recovery's
+    (``cold_fault_to_bpm`` frames), and the ROI before and after.
+    Returns the run's launches."""
+    import dataclasses
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.io.capture import ArrayCapture
+    from respmon_tpu_torch.io.faults import FaultInjector, FaultSchedule
+
+    cfg = dataclasses.replace(cfg or MonitorConfig(),
+                              motion_extraction_method="flow",
+                              streaming_roi=True)
+    start = 1 + cfg.calibration.buffer_length + 1 + blackout_at
+    src = FaultInjector(
+        ArrayCapture(frames, fps=FPS),
+        [FaultSchedule("blackout", start=start, end=start + blackout_len)])
+    mon = make_monitor(None, "flow", cfg, capture=src,
+                       error_reset_delay=0.0, device=device)
+    seen = {"error": None, "bpm_again": None, "measure_again": None,
+            "roi_before": None}
+
+    def after_step(mon, steps):
+        i = len(steps) - 1
+        if seen["error"] is None:
+            if mon.state == "error":
+                seen["error"] = i
+            else:
+                seen["roi_before"] = [mon.x, mon.y, mon.w, mon.h]
+        else:
+            if seen["measure_again"] is None and mon.state == "measure":
+                seen["measure_again"] = i
+                seen["freq_at_recovery"] = len(mon.freq)
+            if (seen["measure_again"] is not None
+                    and seen["bpm_again"] is None
+                    and len(mon.freq) > seen["freq_at_recovery"]):
+                seen["bpm_again"] = i
+        return seen["bpm_again"] is not None   # the run ends there
+
+    reset_launches()
+    with split_timer() as split:
+        steps = drive_monitor(mon, after_step)
+    launches = read_launches()
+    check(seen["error"] is not None and seen["error"] >= start,
+          f"the blackout led to the error state: {seen}")
+    check(seen["bpm_again"] is not None,
+          f"measuring again with a new BPM after the error: {seen}")
+    check(mon.streaming_absorbed["error"] >= 1,
+          f"the rings absorbed the error wait: {mon.streaming_absorbed}")
+    check_k1_streaming(launches, mon, "the warm recovery run")
+    emit({"phase": "monitor_warm_recovery_flow",
+          "frames": list(frames.shape),
+          "blackout_frames": [start, start + blackout_len],
+          "error_step": seen["error"],
+          "measure_again_step": seen["measure_again"],
+          "first_bpm_again_step": seen["bpm_again"],
+          "fault_to_measure_frames": seen["measure_again"] - start + 1,
+          "fault_to_measure_s": sum(s["step_s"] for s in
+                                    steps[start:seen["measure_again"] + 1]),
+          "fault_to_bpm_frames": seen["bpm_again"] - start + 1,
+          "fault_to_bpm_s": sum(s["step_s"] for s in
+                                steps[start:seen["bpm_again"] + 1]),
+          "cold_fault_to_bpm_frames": cold_fault_to_bpm,
+          "warm_calibration_steps": mon.streaming_absorbed["calibration"],
+          "streaming_absorbed": mon.streaming_absorbed,
+          "frames_stepped": len(steps), "relocks": mon.relocks,
+          "roi_before": seen["roi_before"],
+          "roi_after": [mon.x, mon.y, mon.w, mon.h],
+          "launches": launches, "error_message": mon.error_message,
+          **monitor_report(mon, steps), "split_ms": split.report()})
+    return launches
+
+
+def phase_iir_locate(frames, fft_roi):
+    """One 640x480 calibration with ``temporal_filter="iir"``: its bbox
+    beside the FFT calibration's, its time, K1's launches, and the device
+    kernels and copies that its ``sosfilt`` over the kept levels issues
+    (counted by the profiler)."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from respmon_tpu_torch.config import CalibrationConfig
+    from respmon_tpu_torch.ops.dtype import uint8_to_float
+    from respmon_tpu_torch.pipeline import evm
+
+    cfg = dataclasses.replace(CalibrationConfig(), temporal_filter="iir")
+    cal = frames[1:cfg.buffer_length + 1]
+    reset_launches()
+    res, first_s = wall_s(lambda: evm.locate(cal, FPS, cfg))
+    launches = read_launches()
+    check_k1_path(launches, "the IIR calibration")
+    check(bool(res.found), "the 640x480 IIR calibration found an ROI")
+    _, locate_s = wall_s(lambda: evm.locate(cal, FPS, cfg).x)
+    lap = evm._band_laplacian_levels(uint8_to_float(cal), cfg)
+    _, sosfilt_s = wall_s(lambda: evm._bandpass_iir_levels(lap, FPS, cfg))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        evm._bandpass_iir_levels(lap, FPS, cfg)
+        torch.cuda.synchronize()
+    kernels = sum(1 for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    check(kernels > 0, "the profiler saw the IIR bandpass's kernels")
+    emit({"phase": "iir_locate_640x480", "roi": _bbox(res),
+          "fft_roi": list(fft_roi), "launches": launches,
+          "first_locate_s": first_s, "locate_s": locate_s,
+          "bandpass_iir_s": sosfilt_s,
+          "bandpass_iir_columns": sum(v[0].numel() for v in lap.values()),
+          "bandpass_iir_device_kernels_and_copies": kernels})
+
+
 def phase_1080p(dev):
     import torch
 
@@ -1336,6 +1743,7 @@ def phase_1080p(dev):
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1343,24 +1751,45 @@ def main() -> int:
     import respmon_tpu_torch  # noqa: F401  (sets the precision policy)
 
     dev = torch.device("cuda", 0)
-    card = phase_device()
-    phase_build()
-    phase_widen(dev)
-    kernels, lap_path = phase_kernels(dev)
-    kernels += phase_kernels_k3(dev)
-    phase_small_cross_check(dev)
+    seconds = {}
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[fn.__name__] = time.perf_counter() - t0
+        return out
+
+    card = timed(phase_device)
+    timed(phase_build)
+    timed(phase_widen, dev)
+    kernels, lap_path = timed(phase_kernels, dev)
+    kernels += timed(phase_kernels_k3, dev)
+    stream_rows, stream_1080p = timed(phase_streaming_kernels, dev)
+    kernels += stream_rows
+    timed(phase_small_cross_check, dev)
     frames = slice_frames(dev)
-    roi, avg_launches = phase_slice(frames)
-    k3_launches = phase_k3_locate(frames, roi)
-    flow_launches = phase_flow_slice(frames, roi)
-    phase_flow_profile(frames)
+    roi, avg_launches = timed(phase_slice, frames)
+    k3_launches = timed(phase_k3_locate, frames, roi)
+    timed(phase_iir_locate, frames, roi)
+    flow_launches = timed(phase_flow_slice, frames, roi)
+    timed(phase_flow_profile, frames)
     host_frames = frames.cpu().numpy()
     del frames
-    monitor_launches, average_mon = phase_monitor(host_frames)
-    phase_feeder(host_frames, average_mon)
+    # The live monitor over the clip's first MONITOR_FRAMES frames (96
+    # measured), and the fed one over its first 60.
+    monitor_launches, average_mon = timed(phase_monitor,
+                                          host_frames[:MONITOR_FRAMES])
+    timed(phase_feeder, host_frames, average_mon)
     del host_frames
-    recovery_launches = phase_monitor_recovery(recovery_frames())
-    launches_1080p = phase_1080p(dev)
+    streaming_launches = timed(phase_streaming, dev)
+    stream_monitor_launches = timed(phase_monitor_streaming,
+                                    streaming_frames())
+    recovery = recovery_frames()
+    recovery_launches, cold_frames = timed(phase_monitor_recovery, recovery)
+    warm_launches = timed(phase_monitor_warm_recovery, recovery,
+                          cold_fault_to_bpm=cold_frames)
+    del recovery
+    launches_1080p = timed(phase_1080p, dev)
 
     # Each path was driven with every count at 0 just before it and read
     # just after.  ``launches`` is the count on the kernel's own path: the
@@ -1373,7 +1802,14 @@ def main() -> int:
              "locate_1080p": launches_1080p,
              "monitor_640x480_average": monitor_launches["average"],
              "monitor_640x480_flow": monitor_launches["flow"],
-             "monitor_recovery_640x480": recovery_launches}
+             "monitor_recovery_640x480": recovery_launches,
+             "streaming_kernels_1x1080x1920": stream_1080p,
+             "streaming_640x480": streaming_launches,
+             "monitor_streaming_640x480_average":
+                 stream_monitor_launches["average"],
+             "monitor_streaming_640x480_flow":
+                 stream_monitor_launches["flow"],
+             "monitor_warm_recovery_640x480": warm_launches}
     own_path = {"pyr_down_levels_d2": "flow_640x480",
                 "pyr_down_levels_d1": "locate_1080p",
                 "pyr_tail": "flow_640x480",
@@ -1384,9 +1820,11 @@ def main() -> int:
         key = k.pop("counter", k["name"].removesuffix("_f32"))
         k["launches_by_path"] = {name: counts[key]
                                  for name, counts in paths.items()}
-        k["path"] = own_path[key]
-        k["launches"] = paths[own_path[key]][key]
+        k["path"] = k.get("path", own_path[key])
+        k["launches"] = paths[k["path"]][key]
         check(k["launches"] > 0, f"{k['name']} launched on its path")
+    emit({"phase_seconds": seconds, "total_s": time.perf_counter() - start,
+          "budget_s": TIME_BUDGET_S})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -112,8 +112,6 @@ class MonitorConfig:
     # current bbox every ``streaming_interval`` frames once its center
     # drifts > ``streaming_drift_px``, so a moving subject is followed
     # continuously instead of degrading into the error-reset cycle.
-    # (Carried so that a config round-trips; the port has no streaming
-    # mode yet.)
     streaming_roi: bool = False
     streaming_interval: int = 8         # frames between streaming updates
     streaming_drift_px: float = 4.0     # min center drift to re-lock

@@ -7,7 +7,9 @@ port's class of the same name, without importing that package.  A
 ``MeasureState`` travels as ``{field: numpy array}``, the form
 ``respmon_tpu/runtime/checkpoint.py`` writes; in flow mode it carries the
 tracked points, the previous crop and the motion ring, so a measurement
-begun in one package continues in the other.
+begun in one package continues in the other.  A ``StreamingState`` (the
+streaming localizer's rings) travels as ``{"count": array, "levels.0":
+array, "levels.1": array, ...}``, one ring per kept level in order.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from respmon_tpu_torch import config as config_mod
 from respmon_tpu_torch import device as device_mod
 from respmon_tpu_torch.pipeline.motion import MeasureState
+from respmon_tpu_torch.pipeline.streaming import StreamingState
 
 _CONFIG_CLASSES = {cls.__name__: cls for cls in (
     config_mod.FeatureParams, config_mod.LKParams,
@@ -79,3 +82,31 @@ def measure_state_to_numpy(st: MeasureState) -> dict:
     """``{field: numpy array}`` of a port ``MeasureState``."""
     return {f: getattr(st, f).detach().cpu().numpy()
             for f in MeasureState._fields}
+
+
+def streaming_state_from_numpy(d: Mapping[str, np.ndarray],
+                               device=None) -> StreamingState:
+    """A port ``StreamingState`` from ``{"count": ..., "levels.<k>": ...}``
+    (dtypes kept), on the card unless ``device`` says otherwise."""
+    n = sum(1 for k in d if k.startswith("levels."))
+    keys = ["count"] + [f"levels.{k}" for k in range(n)]
+    missing = [k for k in keys if k not in d]
+    if missing or n == 0:
+        raise KeyError(f"StreamingState fields missing: "
+                       f"{missing or ['levels.0']}")
+    device = device_mod.resolve(device)
+
+    def put(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    return StreamingState(levels=tuple(put(d[k]) for k in keys[1:]),
+                          count=put(d["count"]))
+
+
+def streaming_state_to_numpy(st: StreamingState) -> dict:
+    """``{"count": array, "levels.<k>": array}`` of a port
+    ``StreamingState``."""
+    out = {"count": st.count.detach().cpu().numpy()}
+    for k, ring in enumerate(st.levels):
+        out[f"levels.{k}"] = ring.detach().cpu().numpy()
+    return out

@@ -8,8 +8,8 @@ is linear in T with static coefficients, so the chain is one real (T, T)
 operator built on the host in float64 and applied on the device in full
 float32 (TF32 is off: see ``respmon_tpu_torch/__init__.py``).
 
-``temporal_bandpass_iir`` (the non-default ``temporal_filter="iir"``) is not
-ported yet.
+``temporal_bandpass_iir`` is the non-default ``temporal_filter="iir"``: the
+reference's order-6 Butterworth bandpass along T.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from respmon_tpu_torch.ops import filters
 
 
 # Copied from respmon_tpu/ops/fft_bandpass.py:39-53 (that module imports jax).
@@ -66,3 +68,24 @@ def temporal_bandpass_fft(vid: torch.Tensor, fps: float, freq_min: float,
                                   float(freq_max), float(amplification))
     m = torch.as_tensor(op, dtype=vid.dtype, device=vid.device)
     return torch.matmul(m, vid.reshape(n, -1)).reshape(vid.shape)
+
+
+def temporal_bandpass_iir(vid: torch.Tensor, fps: float, freq_min: float,
+                          freq_max: float, amplification: float,
+                          order: int = 6, sos: bool = True) -> torch.Tensor:
+    """The reference's IIR alternative (transforms.py:72-79): an order-6
+    Butterworth bandpass along axis 0 of ``vid`` (T, ...), then
+    amplification.
+
+    Second-order sections by default: the reference's transfer-function
+    form overflows to inf in float32 (its narrowband poles sit at radius
+    ~0.99).  ``sos=False`` filters with the (b, a) form, for float64
+    parity with the reference."""
+    if sos:
+        coeffs = filters.design_butter_bandpass_sos(
+            freq_min, freq_max, float(fps), order=order)
+        return filters.sosfilt(coeffs, vid) * amplification
+    ba = filters.design_butter_bandpass(freq_min, freq_max, float(fps),
+                                        order=order)
+    return filters.lfilter(ba, vid.movedim(0, -1)).movedim(-1, 0) \
+        * amplification

@@ -9,8 +9,8 @@ parallel-prefix form of the DF2T recurrence, rounded as the JAX default
 (``associative=True``) is: same doubling steps, and its 3x3 products
 accumulated in fused multiply-adds (``ops/fma``).
 
-``sosfilt`` and the bandpass designs (the ``temporal_filter="iir"`` path)
-are not ported yet.
+The bandpass designs and ``sosfilt`` serve the ``temporal_filter="iir"``
+calibration (``ops/fft_bandpass.temporal_bandpass_iir``).
 """
 
 from __future__ import annotations
@@ -52,6 +52,66 @@ def design_butter_lowpass(cutoff: float, fs: float,
     zi = lfilter_zi(b, a)
     return FilterCoeffs(b=tuple(b.tolist()), a=tuple(a.tolist()),
                         zi=tuple(zi.tolist()))
+
+
+# Copied from respmon_tpu/ops/filters.py:61-70.
+def design_butter_bandpass(lowcut: float, highcut: float, fs: float,
+                           order: int = 5) -> FilterCoeffs:
+    """Host-side Butterworth bandpass design (reference transforms.py:38-44)."""
+    from scipy.signal import butter, lfilter_zi
+
+    nyq = 0.5 * fs
+    b, a = butter(order, [lowcut / nyq, highcut / nyq], btype="band",
+                  output="ba")
+    zi = lfilter_zi(b, a)
+    return FilterCoeffs(b=tuple(b.tolist()), a=tuple(a.tolist()),
+                        zi=tuple(zi.tolist()))
+
+
+# Copied from respmon_tpu/ops/filters.py:73-79.
+@dataclasses.dataclass(frozen=True)
+class SOSCoeffs:
+    """Second-order-sections cascade (hashable).  sections[i] is the scipy
+    layout (b0, b1, b2, a0, a1, a2) with a0 == 1."""
+
+    sections: Tuple[Tuple[float, ...], ...]
+
+
+# Copied from respmon_tpu/ops/filters.py:82-95.
+def design_butter_bandpass_sos(lowcut: float, highcut: float, fs: float,
+                               order: int = 6) -> SOSCoeffs:
+    """Bandpass design as second-order sections.  A transfer-function
+    order-6 narrowband Butterworth (the reference's IIR alternative,
+    transforms.py:74) has poles at radius ~0.99 and diverges to inf in
+    float32; the SOS cascade is stable in single precision."""
+    from scipy.signal import butter
+
+    nyq = 0.5 * fs
+    sos = butter(order, [lowcut / nyq, highcut / nyq], btype="band",
+                 output="sos")
+    return SOSCoeffs(sections=tuple(tuple(row.tolist()) for row in sos))
+
+
+def sosfilt(coeffs: SOSCoeffs, x: torch.Tensor) -> torch.Tensor:
+    """Causal SOS filtering along axis 0 (scipy.signal.sosfilt), a cascade
+    of biquad recurrences.  Each column is filtered on its own, so columns
+    of several signals may share one call.  The multiply-adds are fused
+    where XLA fuses the JAX package's scan body."""
+    y = x
+    for section in coeffs.sections:
+        b0, b1, b2, _, a1, a2 = (torch.tensor(v, dtype=x.dtype,
+                                              device=x.device)
+                                 for v in section)
+        d1 = torch.zeros_like(x[0])
+        d2 = torch.zeros_like(x[0])
+        out = torch.empty_like(y)
+        for k in range(y.shape[0]):
+            xn = y[k]
+            yn = fma(b0, xn, d1)
+            d1, d2 = fma(-a1, yn, fma(b1, xn, d2)), fma(b2, xn, -(a2 * yn))
+            out[k] = yn
+        y = out
+    return y
 
 
 def _vec(values, like: torch.Tensor) -> torch.Tensor:

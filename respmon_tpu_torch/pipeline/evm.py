@@ -2,7 +2,8 @@
 
 Port of ``respmon_tpu/pipeline/evm.py`` (reference transforms.py:144-198 +
 base.py:547-601): the kept Laplacian levels of the (T, H, W) buffer, the
-packed-rfft temporal bandpass per level, the collapse, suppress-top
+temporal bandpass per level (the packed-rfft operator, or with
+``temporal_filter="iir"`` the order-6 Butterworth), the collapse, suppress-top
 windowing, the heatmap, the threshold and the largest component's bbox.
 
 The Laplacian levels come from ``ops/pyramid_cuda``: on a CUDA tensor its
@@ -21,7 +22,8 @@ import torch
 from respmon_tpu_torch.config import CalibrationConfig
 from respmon_tpu_torch.ops import ccl, pyramid_cuda
 from respmon_tpu_torch.ops.dtype import float_to_uint8, uint8_to_float
-from respmon_tpu_torch.ops.fft_bandpass import temporal_bandpass_fft
+from respmon_tpu_torch.ops.fft_bandpass import (temporal_bandpass_fft,
+                                                temporal_bandpass_iir)
 from respmon_tpu_torch.ops.pyramid import pyr_up, pyramid_shapes
 from respmon_tpu_torch.utils.bench import wait_for
 
@@ -80,29 +82,49 @@ def _evm_stages(vid: torch.Tensor, fps: float, cfg: CalibrationConfig,
     each level's temporal bandpass, the collapse.  Returns (band levels by
     level, raw collapsed video, pyramid shapes).  Each stage runs through
     ``stage(name, fn, *args)``."""
-    if cfg.temporal_filter != "fft":
-        raise NotImplementedError(
-            f"temporal_filter={cfg.temporal_filter!r}: only 'fft' is ported")
+    if cfg.temporal_filter not in ("fft", "iir"):
+        raise ValueError("temporal_filter must be 'fft' or 'iir', got "
+                         f"{cfg.temporal_filter!r}")
     t_len, h, w = vid.shape
     shapes = pyramid_shapes(h, w, cfg.pyramid_levels)
     lap = stage("create_laplacian_video_pyramid", _band_laplacian_levels,
                 vid, cfg)
-    band = {i: stage("temporal_bandpass_filter", temporal_bandpass_fft, lvl,
-                     fps, cfg.freq_min, cfg.freq_max, cfg.amplification)
-            for i, lvl in lap.items()}
+    if cfg.temporal_filter == "fft":
+        band = {i: stage("temporal_bandpass_filter", temporal_bandpass_fft,
+                         lvl, fps, cfg.freq_min, cfg.freq_max,
+                         cfg.amplification)
+                for i, lvl in lap.items()}
+    else:
+        band = stage("temporal_bandpass_filter", _bandpass_iir_levels, lap,
+                     fps, cfg)
     raw = stage("collapse_laplacian_video_pyramid", _collapse, band, shapes,
                 t_len, vid)
     return band, raw, shapes
 
 
+def _bandpass_iir_levels(lap: Dict[int, torch.Tensor], fps: float,
+                         cfg: CalibrationConfig) -> Dict[int, torch.Tensor]:
+    """The IIR bandpass of every level in one recurrence: each pixel's
+    filter runs on its own, so the levels' (T, pixels) columns side by side
+    give each level what filtering it alone gives, in one launch chain
+    instead of one per level."""
+    t_len = next(iter(lap.values())).shape[0]
+    flat = torch.cat([lvl.reshape(t_len, -1) for lvl in lap.values()], dim=1)
+    out = temporal_bandpass_iir(flat, fps, cfg.freq_min, cfg.freq_max,
+                                cfg.amplification)
+    sizes = [lvl[0].numel() for lvl in lap.values()]
+    return {i: part.reshape(lvl.shape) for (i, lvl), part in
+            zip(lap.items(), out.split(sizes, dim=1))}
+
+
 def _collapse(band: Dict[int, torch.Tensor], shapes, t_len: int,
-              like: torch.Tensor) -> torch.Tensor:
+              like: torch.Tensor, stop: int = 0) -> torch.Tensor:
     """Collapse the implicitly zero-padded bandpassed pyramid: start at the
-    deepest filtered level and pyrUp-add up through level 0."""
+    deepest filtered level and pyrUp-add up through level ``stop``."""
     last = len(shapes) - 2
     img = torch.zeros((t_len,) + tuple(shapes[last + 1]), dtype=like.dtype,
                       device=like.device)
-    for lvl in range(last, -1, -1):
+    for lvl in range(last, stop - 1, -1):
         img = pyr_up(img, shapes[lvl])
         if lvl in band:
             img = img + band[lvl]
@@ -176,17 +198,21 @@ def _locate_from_evm(band: Dict[int, torch.Tensor], raw: torch.Tensor,
     return _finish_locate(avg, raw_avg, cfg)
 
 
+def _heat_and_box(avg: torch.Tensor, cfg: CalibrationConfig):
+    """(uint8 heatmap, foreground mask, largest component) of an average
+    frame: min-max normalize, threshold strictly above, label."""
+    avg_norm = (avg - avg.min()) / (avg.max() - avg.min())
+    heat_u8 = float_to_uint8(avg_norm)
+    threshold = int(round(cfg.threshold * 255.0))
+    fg = heat_u8.to(torch.int32) > threshold   # cv2.THRESH_BINARY strict >
+    return heat_u8, fg, ccl.largest_component_bbox(fg)
+
+
 def _finish_locate(avg: torch.Tensor, raw_avg: torch.Tensor,
                    cfg: CalibrationConfig) -> LocateResult:
     """Normalize -> threshold -> largest component (base.py:560-575)."""
-    avg_norm = (avg - avg.min()) / (avg.max() - avg.min())
-    heat_u8 = float_to_uint8(avg_norm)
-
-    threshold = int(round(cfg.threshold * 255.0))
-    fg = heat_u8.to(torch.int32) > threshold   # cv2.THRESH_BINARY strict >
+    heat_u8, fg, box = _heat_and_box(avg, cfg)
     thresh_img = fg.to(torch.uint8) * 255
-
-    box = ccl.largest_component_bbox(fg)
 
     raw_norm = (raw_avg - raw_avg.min()) / (raw_avg.max() - raw_avg.min())
     return LocateResult(found=box.found, x=box.x, y=box.y, w=box.w, h=box.h,

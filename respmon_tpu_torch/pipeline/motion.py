@@ -14,8 +14,9 @@ plus the ring discipline (popleft at capacity, base.py:473-475) and the
 time axis t += 1/fps (base.py:481-484).  The ROI crop is a *bucketed*
 window (ROI dims rounded up to ``roi_bucket``) with a validity mask.  The
 state is a NamedTuple of tensors; ``measure_step`` returns a new one and
-changes nothing in place.  Not ported yet: ``relock_state`` and the
-carried LK cache of the fleet step (``FlowCache``, ``measure_step_cached``).
+changes nothing in place.  ``relock_state`` moves a state onto a new ROI
+(the streaming-ROI monitor's re-lock).  Not ported yet: the carried LK
+cache of the fleet step (``FlowCache``, ``measure_step_cached``).
 """
 
 from __future__ import annotations
@@ -253,3 +254,39 @@ def _flow_motion(state: MeasureState, crop, mask, spec: MeasureSpec,
     new = state._replace(prev_crop=crop_u8, pts=fr.pts, pts_valid=good,
                          motion_xy=motion_xy, motion_count=motion_count)
     return sample, new, lost
+
+
+def relock_state(state: MeasureState, frame, new_roi: Sequence[int],
+                 spec: MeasureSpec) -> MeasureState:
+    """Move a measurement state onto a new ROI without losing tracking
+    (the streaming-ROI monitor's re-lock; the reference can only
+    recalibrate from scratch).
+
+    The crop window shifts with the ROI, so tracked points move by the
+    change in window origin (they keep to the same pixels of the frame),
+    and ``prev_crop`` is cropped anew from the CURRENT frame at the new
+    window, so the next LK step sees a consistent pair.  Points that leave
+    the new window are dropped; when none is left, ``initialized`` drops
+    too and the next step detects corners on the new crop.  ``frame`` is
+    float in [0, 1] or camera-native uint8, as for ``measure_step``."""
+    dev = state.data.device
+    frame = torch.as_tensor(frame).to(dev)
+    old_roi = [int(v) for v in state.roi.tolist()]
+    new_roi = [int(v) for v in new_roi]
+    (sy_old, sx_old), _ = _roi_window_mask(old_roi, spec, dev)
+    (sy_new, sx_new), _ = _roi_window_mask(new_roi, spec, dev)
+    crop, mask = _crop_and_mask(frame, new_roi, spec)
+    if frame.dtype == torch.uint8:
+        crop_u8 = torch.where(mask, crop, 0)
+    else:
+        crop_u8 = _to_u8_scale(torch.where(mask, crop, 0.0))
+    shift = torch.tensor([sx_old - sx_new, sy_old - sy_new],
+                         dtype=state.pts.dtype, device=dev)
+    pts = state.pts + shift
+    inb = ((pts[:, 0] >= 0) & (pts[:, 0] <= spec.crop_w - 1)
+           & (pts[:, 1] >= 0) & (pts[:, 1] <= spec.crop_h - 1))
+    valid = state.pts_valid & inb
+    return state._replace(
+        roi=torch.tensor(new_roi, dtype=torch.int32, device=dev),
+        prev_crop=crop_u8.to(state.prev_crop.dtype), pts=pts,
+        pts_valid=valid, initialized=state.initialized & (valid.sum() > 0))

@@ -13,7 +13,13 @@ reference monitor (base.py:20-545):
     (base.py:535-541),
   - ``skip_calibration`` ROI pinning (base.py:166-172),
   - session recording (AVI + npy) and the calibration montage PNG,
-  - Benchmarker phase tags (base.py:410-412).
+  - Benchmarker phase tags (base.py:410-412),
+
+and the JAX package's streaming-ROI mode (``streaming_roi=True``): rolling
+pyramid rings that absorb every measured frame (and every frame of the
+error wait), a localize every ``streaming_interval`` frames that re-locks
+the measurement window onto a drifting subject, and a warm recovery that
+localizes from the rings instead of refilling the calibration buffer.
 
 Departures from the reference (deliberate, documented):
   - Construction does NOT block: pass ``auto_run=True`` (the default mirrors
@@ -22,16 +28,15 @@ Departures from the reference (deliberate, documented):
   - The device work of a frame is ``locate`` once per calibration, and per
     measured frame the motion step, plus the BPM estimate once its result
     is consumed (after ``initialization_length`` samples); each frame's
-    results cross to the host in one copy.  The whole-clip path lives in
-    ``pipeline/scan.py``.
+    results, a streaming localize's bbox among them, cross to the host in
+    one copy.  The whole-clip path lives in ``pipeline/scan.py``.
   - A capture source can be injected (ArrayCapture) for recorded-clip
     replay, and ``sync_fps=False`` disables wall-clock sleeping for
     faster-than-real-time offline runs.
 
 All device state lives on ``device``, resolved once at construction:
 ``None`` means the card (``device.resolve``: it raises without one), and a
-CPU run passes ``device="cpu"``.  Not ported yet: the streaming-ROI mode
-(``streaming_roi=True`` raises).
+CPU run passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from respmon_tpu_torch.io.recorder import SessionRecorder
 from respmon_tpu_torch.ops import dtype as dtype_ops
 from respmon_tpu_torch.ops import filters
 from respmon_tpu_torch.pipeline import bpm as bpm_mod
-from respmon_tpu_torch.pipeline import evm, motion
+from respmon_tpu_torch.pipeline import evm, motion, streaming
 from respmon_tpu_torch.runtime.feeder import FrameFeeder
 from respmon_tpu_torch.utils.bbox import reduce_bounding_box
 from respmon_tpu_torch.utils.bench import Benchmarker
@@ -84,6 +89,13 @@ def _to_host(*tensors):
         out.append(flat[i:i + n].reshape(tuple(t.shape)).astype(dt))
         i += n
     return out
+
+
+def _bbox_to_host(res):
+    """(found, x, y, w, h) of a locate result as Python ints, in one
+    device-to-host copy."""
+    return tuple(int(v) for v in _to_host(res.found, res.x, res.y, res.w,
+                                          res.h))
 
 
 class RespiratoryMonitor:
@@ -118,10 +130,6 @@ class RespiratoryMonitor:
             streaming_interval=cfg.streaming_interval,
             streaming_drift_px=cfg.streaming_drift_px)
         self.config = cfg.validate()
-        if cfg.streaming_roi:
-            raise NotImplementedError(
-                "streaming_roi=True: the streaming-ROI mode is not ported "
-                "yet (ROADMAP.md, queue 1, item 3)")
         self.device = device_mod.resolve(device)
         self.benchmarker = Benchmarker()
         for tag in ("Measurement Loop", "Frame Capture",
@@ -223,6 +231,18 @@ class RespiratoryMonitor:
         self._measure_spec: Optional[motion.MeasureSpec] = None
         self._measure_state: Optional[motion.MeasureState] = None
         self._lowpass = None
+        # Streaming-ROI mode (config.streaming_roi): rolling pyramid rings
+        # + continuous re-lock during measurement.  ``_streaming_count``
+        # mirrors the rings' device count on the host.
+        self._streaming_state: Optional[streaming.StreamingState] = None
+        self._streaming_tick = 0
+        self._streaming_count = 0
+        self.relocks = 0             # observable: streaming re-lock count
+        # Frames the rings absorbed, by the state the monitor was in, and
+        # the rings' warm starts from a calibration buffer.
+        self.streaming_absorbed = {"calibration": 0, "measure": 0,
+                                   "error": 0}
+        self.streaming_starts = 0
 
         self.ui = make_ui(visualize, fig_size)
 
@@ -276,6 +296,12 @@ class RespiratoryMonitor:
         elif self.state == "measure":
             self._measure_frame(frame)
         elif self.state == "error":
+            # Streaming-ROI mode keeps the rings warm through the error
+            # wait (the frames are captured anyway), so recovery can
+            # localize from them (see _calibration_step's warm path).
+            if (self.config.streaming_roi
+                    and self._streaming_state is not None):
+                self._streaming_absorb(self._ingest(frame), "error")
             if time.time() - self.reset_start_time >= \
                     self.config.error_reset_delay:
                 logger.info("Benchmark Report...\r\n"
@@ -339,6 +365,14 @@ class RespiratoryMonitor:
         self._measure_state = None
         self.cropped_image = None
         self.motion_key_points = None
+        # Streaming-ROI mode: the rings SURVIVE the reset (kept
+        # fps-contiguous through the error wait) so the next calibration
+        # can localize from them at once; otherwise the reference's cold
+        # reset applies.
+        if not self.config.streaming_roi:
+            self._streaming_state = None
+            self._streaming_tick = 0
+            self._streaming_count = 0
         if self._recorder is not None:
             self._recorder.release_video()
 
@@ -381,8 +415,14 @@ class RespiratoryMonitor:
             self.fps = self.config.fps_limit
         logger.info("Final FPS is {0}.".format(self.fps))
 
+    def _ingest(self, frames) -> torch.Tensor:
+        return dtype_ops.ingest_frames(frames, self.compute_dtype,
+                                       self.device)
+
     def _calibration_step(self, frame) -> bool:
         """Returns True when UI/sync should be skipped (retry path)."""
+        if self._warm_calibration_available():
+            return self._warm_calibration_step(frame)
         if self.calibration_buffer_idx < self.calibration_buffer_target_length:
             self.calibration_buffer[self.calibration_buffer_idx] = frame
             self.calibration_buffer_idx += 1
@@ -396,14 +436,11 @@ class RespiratoryMonitor:
 
         self.benchmarker.tick_start("Calibration Measurement")
         locate_fn = evm.locate_verbose if self.verbose_evm else evm.locate
-        result = locate_fn(
-            dtype_ops.ingest_frames(self.calibration_buffer,
-                                    self.compute_dtype, self.device),
-            float(self.fps), self.config.calibration)
+        buffer_dev = self._ingest(self.calibration_buffer)
+        result = locate_fn(buffer_dev, float(self.fps),
+                           self.config.calibration)
         # The host read waits for the device, so the tag times execution.
-        found, x, y, w, h = (int(v) for v in torch.stack([
-            result.found.to(torch.int32), result.x, result.y, result.w,
-            result.h]).tolist())
+        found, x, y, w, h = _bbox_to_host(result)
         self.benchmarker.tick_end("Calibration Measurement")
 
         if not found:
@@ -420,8 +457,80 @@ class RespiratoryMonitor:
         logger.info("Finished calibration.")
         logger.info("Beginning measuring...")
         self._setup_measurement()
+        if self.config.streaming_roi:
+            # Warm-start the rings from the calibration buffer (one K1
+            # call) so re-locking can begin at once.
+            self._streaming_state = streaming.init_streaming_from_buffer(
+                buffer_dev, self.config.calibration)
+            self._streaming_tick = 0
+            self._streaming_count = self.config.calibration.buffer_length
+            self.streaming_starts += 1
         self.state = "measure"
         return False
+
+    def _warm_calibration_available(self) -> bool:
+        """True when the streaming rings hold a full fps-contiguous window
+        (kept warm through the error state), so calibration can localize
+        at once instead of refilling the calibration buffer: the recovery
+        dead time drops from ``buffer_length/fps`` seconds of fresh
+        capture to one frame (reference base.py:515-533 can only
+        cold-restart)."""
+        if not self.config.streaming_roi or self._streaming_state is None:
+            return False
+        if math.isnan(self.fps) or self.fps <= 0:
+            return False   # fps never probed: cold calibration measures it
+        return self._streaming_count >= \
+            self.config.calibration.buffer_length
+
+    def _warm_calibration_step(self, frame) -> bool:
+        """One warm-recovery calibration step: absorb the frame, localize
+        over the rolling window, and enter measurement on success.  Returns
+        True (skip UI/sync, like the cold retry path) while no ROI is
+        found: each later frame retries, at frame rate instead of after
+        another full buffer."""
+        self.detect_fps()
+        self.peak_minimum_sample_distance = int(
+            np.floor(self.fps / self.config.calibration.freq_max))
+
+        self.benchmarker.tick_start("Calibration Measurement")
+        res = self._streaming_absorb(self._ingest(frame), "calibration",
+                                     localize=True)
+        found, x, y, w, h = _bbox_to_host(res)
+        self.benchmarker.tick_end("Calibration Measurement")
+
+        if not found:
+            logger.info("Failed finding ROI during calibration. Retrying...")
+            return True   # reference `continue`s past UI/sync (base.py:454)
+
+        self.x, self.y, self.w, self.h = reduce_bounding_box(
+            x, y, w, h, self.config.calibration.maximum_bounding_box_area)
+        if self.config.save_calibration_image:
+            logger.info("Calibration montage unavailable on the warm "
+                        "(streaming-ring) recovery path; skipping save.")
+        logger.info("Finished calibration (warm, from streaming rings).")
+        logger.info("Beginning measuring...")
+        self._setup_measurement()
+        self._streaming_tick = 0
+        self.state = "measure"
+        return False
+
+    def _streaming_absorb(self, frame_dev, state: str,
+                          localize: bool = False):
+        """Absorb a device frame into the rings (``state`` names the
+        monitor state, for ``streaming_absorbed``); with ``localize``, also
+        localize over the window and return the ``StreamingLocate``."""
+        cal = self.config.calibration
+        if localize:
+            self._streaming_state, res = streaming.streaming_update(
+                self._streaming_state, frame_dev, float(self.fps), cal)
+        else:
+            self._streaming_state = streaming.streaming_absorb(
+                self._streaming_state, frame_dev, cal)
+            res = None
+        self._streaming_count = min(self._streaming_count + 1,
+                                    cal.buffer_length)
+        self.streaming_absorbed[state] += 1
+        return res
 
     def _setup_measurement(self):
         # Crop-bucket reuse across recalibrations: when a fresh ROI fits
@@ -466,8 +575,7 @@ class RespiratoryMonitor:
         # below, which needs a ring of one sample, cannot fire.
         init_len = self.config.measure.initialization_length
         consume = len(self.data) + 1 > init_len
-        frame_dev = dtype_ops.ingest_frames(frame, self.compute_dtype,
-                                            self.device)
+        frame_dev = self._ingest(frame)
         if consume:
             new_state, sample, bpm_res = _measure_and_estimate(
                 self._measure_state, frame_dev, spec, self._lowpass,
@@ -477,6 +585,9 @@ class RespiratoryMonitor:
             new_state, sample = motion.measure_step(
                 self._measure_state, frame_dev, spec)
         self._measure_state = new_state
+        located = None
+        if self.config.streaming_roi and self._streaming_state is not None:
+            located = self._streaming_roi_step(frame_dev)
 
         # One device-to-host copy for the frame; it waits for the device,
         # so the tag times execution.
@@ -486,7 +597,13 @@ class RespiratoryMonitor:
         if consume:
             wanted += [bpm_res.filtered, bpm_res.accept_mask,
                        bpm_res.cand_idx, bpm_res.has_bpm, bpm_res.bpm]
+        if located is not None:
+            wanted += [located.found, located.x, located.y, located.w,
+                       located.h]
         host = _to_host(*wanted)
+        if located is not None:
+            self._relock(frame_dev, *(int(v) for v in host[-5:]))
+            host = host[:-5]
         sample_val = float(host[0])
         error = bool(host[1])
 
@@ -525,6 +642,48 @@ class RespiratoryMonitor:
             if not self.disable_error_detection and self.detect_errors():
                 self.trigger_error("error detection found poor signal")
         self.benchmarker.tick_end("Measurement Loop")
+
+    def _streaming_roi_step(self, frame_dev):
+        """Streaming-ROI mode: absorb the frame into the rings every frame
+        (the bandpass needs a contiguous fps-rate window), and every
+        ``streaming_interval`` frames localize over the window too.
+        Returns the localize's result, or None."""
+        self._streaming_tick += 1
+        return self._streaming_absorb(
+            frame_dev, "measure",
+            localize=self._streaming_tick % self.config.streaming_interval
+            == 0)
+
+    def _relock(self, frame_dev, found, bx, by, bw, bh):
+        """When the located center has drifted at least
+        ``streaming_drift_px``, re-lock the measurement window onto it via
+        ``motion.relock_state``: tracked points and the signal ring
+        survive, so a moving subject is followed instead of decaying into
+        the error-recalibrate stall.  The window KEEPS its calibrated size
+        (recentred on the new bbox center, clipped to the frame): the crop
+        bucket and the session recorder's geometry stay fixed."""
+        if not found:
+            return
+        cx = bx + bw / 2.0
+        cy = by + bh / 2.0
+        drift = math.hypot(cx - (self.x + self.w / 2.0),
+                           cy - (self.y + self.h / 2.0))
+        if drift < self.config.streaming_drift_px:
+            return
+        x2 = int(round(cx - self.w / 2.0))
+        y2 = int(round(cy - self.h / 2.0))
+        x2 = max(0, min(x2, self.width - self.w))
+        y2 = max(0, min(y2, self.height - self.h))
+        if (x2, y2) == (self.x, self.y):
+            return
+        self._measure_state = motion.relock_state(
+            self._measure_state, frame_dev, (x2, y2, self.w, self.h),
+            self._measure_spec)
+        self.x, self.y = x2, y2
+        self.relocks += 1
+        logger.info("Streaming re-lock #%d: ROI -> (%d, %d, %d, %d), "
+                    "drift %.1f px", self.relocks, x2, y2, self.w, self.h,
+                    drift)
 
     def _consume_bpm(self, filtered, accept_mask, cand_idx, has_bpm, bpm):
         """Host mirrors of the frame's BPM result (host copies of its

@@ -102,3 +102,127 @@ def test_phases_fail_when_a_check_fails(cpu_stand_ins):
     frames = _u8_clip(1 + 64 + 1 + 40)
     with pytest.raises(RuntimeError, match="check failed"):
         chip_smoke.phase_monitor_recovery(frames, CFG, "cpu")
+
+
+# -- the streaming-ROI and IIR phases ----------------------------------------
+
+@pytest.fixture
+def planned_launches(monkeypatch):
+    """CPU stand-ins that count: each K1 call adds the launches its plan
+    makes on the card to ``pyramid_cuda.LAUNCHES``, so the phases' own
+    launch checks run; no device to synchronise."""
+    from respmon_tpu_torch.ops import pyramid_cuda
+
+    k1 = pyramid_cuda.laplacian_band_levels
+
+    def counted(vid, levels, skip_top):
+        planned = chip_smoke.planned_launches(*vid.shape[1:], levels,
+                                              skip_top)
+        for k, n in planned.items():
+            pyramid_cuda.LAUNCHES[k] += n
+        return k1(vid, levels, skip_top)
+
+    monkeypatch.setattr(pyramid_cuda, "laplacian_band_levels", counted)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    return lines
+
+
+# The 640x480 streaming clip's drift, scaled to 120x160 frames and a
+# 64-frame calibration (1 + 64 + 1 + 64 frames).
+SMALL_STREAM = dict(num_frames=1 + 64 + 1 + 64, height=120, width=160,
+                    start=(50, 60), drift=(20.0, 40.0), patch_size=(20, 25))
+
+
+def test_streaming_phase_rehearses_on_the_cpu(planned_launches):
+    lines = planned_launches
+    cal = CFG.calibration
+    static = chip_smoke.quantize(breathing_clip(
+        num_frames=64, height=120, width=160, fps=chip_smoke.FPS, bpm=18.0,
+        patch_center=(60, 80), patch_size=(30, 40), amplitude=0.12))
+    moving = chip_smoke.streaming_frames(**SMALL_STREAM)[1:]
+    launches = chip_smoke.phase_streaming("cpu", cal, static, moving)
+    row = lines[-1]
+    assert row["phase"] == "streaming_640x480"
+    absorbed = len(moving) - 64
+    assert launches["pyr_tail"] == 1 + absorbed
+    assert len(row["bboxes"]) == absorbed // 8
+    assert row["absorb_ms"]["n"] == absorbed
+    assert row["localize_ms"]["n"] == absorbed // 8
+
+
+def test_monitor_streaming_phase_rehearses_on_the_cpu(planned_launches):
+    lines = planned_launches
+    frames = chip_smoke.streaming_frames(**SMALL_STREAM)
+    start, drift = SMALL_STREAM["start"], SMALL_STREAM["drift"]
+    launches = chip_smoke.phase_monitor_streaming(
+        frames, CFG, "cpu", final=(start[0] + drift[0], start[1] + drift[1]))
+    assert set(launches) == {"average", "flow"}
+    rows = {line["phase"]: line for line in lines}
+    for method in ("average", "flow"):
+        row = rows[f"monitor_streaming_{method}"]
+        assert row["relocks"] >= (2 if method == "average" else 1)
+        assert len(row["relock_steps"]) == row["relocks"]
+        absorbed = row["streaming_absorbed"]
+        assert absorbed["measure"] == row["measured_step_ms"]["n"] == 64
+        # K1: the locate and the rings' warm start (A d = 2 + B each at
+        # 640x480; here B alone) and one call per absorbed frame.
+        assert row["launches"]["pyr_tail"] == 2 + absorbed["measure"]
+        split = row["split_ms"]
+        assert split["absorb"]["n"] == 64
+        assert split["localize"]["n"] == 64 // 8
+        assert split["relock"]["n"] == row["relocks"]
+        assert split["motion_step"]["n"] == 64
+
+
+def test_warm_recovery_phase_rehearses_on_the_cpu(planned_launches):
+    lines = planned_launches
+    frames = _u8_clip(1 + 64 + 1 + 30 + 15 + 64 + 1 + 60)
+    chip_smoke.phase_monitor_warm_recovery(frames, CFG, "cpu")
+    row = lines[-1]
+    assert row["phase"] == "monitor_warm_recovery_flow"
+    start = row["blackout_frames"][0]
+    assert start == 1 + 64 + 1 + 30
+    assert start <= row["error_step"] < row["measure_again_step"] \
+        < row["first_bpm_again_step"]
+    assert row["fault_to_measure_frames"] < row["fault_to_bpm_frames"]
+    assert row["frames_stepped"] == row["first_bpm_again_step"] + 1
+    assert row["streaming_absorbed"]["error"] >= 1
+    assert row["warm_calibration_steps"] >= 1
+    assert row["roi_before"] is not None and row["roi_after"] is not None
+
+
+def test_k1_streaming_check_fails_on_a_missing_launch(planned_launches):
+    frames = chip_smoke.streaming_frames(**SMALL_STREAM)[:1 + 64 + 1 + 8]
+    mon = chip_smoke.make_monitor(
+        frames, "average", CFG.__class__(
+            calibration=CFG.calibration, streaming_roi=True), device="cpu")
+    chip_smoke.reset_launches()
+    chip_smoke.drive_monitor(mon)
+    launches = chip_smoke.read_launches()
+    chip_smoke.check_k1_streaming(launches, mon, "a full count")
+    launches["pyr_tail"] -= 1
+    with pytest.raises(RuntimeError, match="check failed"):
+        chip_smoke.check_k1_streaming(launches, mon, "one launch short")
+
+
+def test_k1_bound_at_t1():
+    # 640x480 L9/S4 at T = 1: the frame in (1.23 MB) and the kept levels
+    # out, about 0.37 us at 3.35 TB/s; 1080p about 2.5 us.
+    b = chip_smoke.k1_bound(1, 480, 640, 9, 4)
+    assert b["bound_by"] == "bytes"
+    assert 0.36e-3 < b["bound_ms"] < 0.38e-3
+    b = chip_smoke.k1_bound(1, 1080, 1920, 9, 4)
+    assert b["bound_by"] == "bytes" and 2.4e-3 < b["bound_ms"] < 2.6e-3
+
+
+def test_main_prints_each_phase_seconds_within_the_budget():
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    for phase in ("phase_streaming_kernels", "phase_streaming",
+                  "phase_monitor_streaming", "phase_monitor_warm_recovery",
+                  "phase_iir_locate", "phase_monitor_recovery"):
+        assert f"timed({phase}" in src
+    assert '"phase_seconds"' in src and chip_smoke.TIME_BUDGET_S == 900

@@ -136,6 +136,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
         r"^\s*(from|import)\s+(jax|jaxlib|respmon_tpu)(\.|\s|$)", re.M)
     paths = _port_sources()
     assert len(paths) > 20
+    assert os.path.join(REPO, "respmon_tpu_torch", "pipeline",
+                        "streaming.py") in paths
     for path in paths:
         with open(path) as fh:
             hit = pattern.search(fh.read())
@@ -147,6 +149,7 @@ def test_importing_every_port_module_loads_neither_jax_nor_the_jax_package():
         m.name for m in pkgutil.walk_packages(respmon_tpu_torch.__path__,
                                               "respmon_tpu_torch.")]
     assert "respmon_tpu_torch.ops.lk" in names
+    assert "respmon_tpu_torch.pipeline.streaming" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r} + ['chip_smoke']:\n"

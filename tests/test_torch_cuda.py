@@ -49,7 +49,9 @@ def test_uint8_to_float_all_bytes(dev):
                                                ((2, 480, 640), 9, 4),
                                                ((2, 481, 643), 9, 4),
                                                ((2, 480, 640), 9, 1),
-                                               ((2, 1080, 1920), 9, 4)])
+                                               ((2, 1080, 1920), 9, 4),
+                                               ((1, 480, 640), 9, 4),
+                                               ((1, 1080, 1920), 9, 4)])
 def test_kernels_equal_plain_bit_for_bit(dev, shape, levels, skip):
     v = _video(shape, dev)
     plan = pyramid_cuda.plan(*shape[1:], levels, skip)
@@ -271,5 +273,78 @@ def test_monitor_card_matches_cpu(dev):
     assert card_trace == cpu_trace and card.state == "measure"
     assert (card.x, card.y, card.w, card.h) == (cpu.x, cpu.y, cpu.w, cpu.h)
     assert len(card.freq) == len(cpu.freq) > 0
+    np.testing.assert_allclose(np.asarray(card.freq), np.asarray(cpu.freq),
+                               rtol=1e-5)
+
+
+def test_streaming_absorb_launches_k1_at_t1_and_equals_cpu(dev):
+    # Every absorbed frame is one K1 call at T = 1 on the card, and the
+    # rings equal the CPU's bit for bit.
+    from respmon_tpu_torch.pipeline import streaming
+
+    clip = breathing_clip(num_frames=66, height=120, width=160, fps=10.0,
+                          bpm=18.0, patch_center=(50, 60),
+                          patch_size=(20, 25), amplitude=0.12,
+                          drift_px=(10.0, 20.0))
+    u8 = torch.from_numpy(np.clip(np.round(clip * 255.0), 0, 255).astype(
+        np.uint8))
+    states = {}
+    for device in (dev, torch.device("cpu")):
+        st = streaming.init_streaming_from_buffer(u8[:64].to(device), CAL)
+        pyramid_cuda.reset_launches()
+        st = streaming.streaming_absorb(st, u8[64].to(device), CAL)
+        st, res = streaming.streaming_update(st, u8[65].to(device), 10.0, CAL)
+        states[device.type] = (st, res, dict(pyramid_cuda.LAUNCHES))
+    (card, card_res, launches), (cpu, cpu_res, _) = states["cuda"], \
+        states["cpu"]
+    assert launches["pyr_tail"] == 2
+    for a, b in zip(card.levels, cpu.levels):
+        assert torch.equal(a.cpu(), b)
+    assert bool(card_res.found) == bool(cpu_res.found)
+    assert [int(v) for v in (card_res.x, card_res.y, card_res.w,
+                             card_res.h)] == \
+        [int(v) for v in (cpu_res.x, cpu_res.y, cpu_res.w, cpu_res.h)]
+    assert torch.equal(card_res.heatmap_u8.cpu(), cpu_res.heatmap_u8)
+
+
+def test_locate_iir_card_matches_cpu(dev):
+    clip = breathing_clip(num_frames=64, height=120, width=160, fps=10.0,
+                          bpm=18.0, patch_center=(60, 80),
+                          patch_size=(30, 40), amplitude=0.12)
+    cfg = dataclasses.replace(CAL, temporal_filter="iir")
+    vid = torch.from_numpy(clip)
+    got = evm.locate(vid.to(dev), 10.0, cfg)
+    want = evm.locate(vid, 10.0, cfg)
+    assert bool(got.found) and bool(want.found)
+    assert [int(v) for v in (got.x, got.y, got.w, got.h)] == \
+        [int(v) for v in (want.x, want.y, want.w, want.h)]
+
+
+def test_streaming_monitor_card_matches_cpu(dev):
+    # The streaming-ROI monitor on the card against the CPU, frame for
+    # frame: the state, the re-lock count and the ROI after every step.
+    from respmon_tpu_torch.io.capture import ArrayCapture
+    from respmon_tpu_torch.runtime import RespiratoryMonitor
+
+    clip = breathing_clip(num_frames=64 + 1 + 1 + 64, height=120, width=160,
+                          fps=10.0, bpm=18.0, patch_center=(50, 60),
+                          patch_size=(20, 25), amplitude=0.12,
+                          drift_px=(20.0, 40.0))
+    runs = []
+    for device in (None, "cpu"):
+        mon = RespiratoryMonitor(
+            capture=ArrayCapture(clip, fps=10.0), visualize=None,
+            save_all_data=False, sync_fps=False, auto_run=False,
+            config=MonitorConfig(calibration=CAL, streaming_roi=True),
+            device=device)
+        trail = []
+        while mon.step():
+            trail.append((mon.state, mon.relocks, (mon.x, mon.y, mon.w,
+                                                   mon.h)))
+        runs.append((mon, trail))
+    (card, card_trail), (cpu, cpu_trail) = runs
+    assert card._streaming_state.levels[0].device.type == "cuda"
+    assert card_trail == cpu_trail and card.state == "measure"
+    assert card.relocks >= 1
     np.testing.assert_allclose(np.asarray(card.freq), np.asarray(cpu.freq),
                                rtol=1e-5)

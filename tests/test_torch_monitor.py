@@ -356,11 +356,14 @@ def test_monitor_matches_process_clip_on_decoded_frames(tmp_path):
 # -- construction ----------------------------------------------------------
 
 def test_streaming_roi_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="streaming"):
-        _monitor(_clip(4), streaming_roi=True)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        _monitor(_clip(4), config=MonitorConfig(calibration=SMALL_CAL,
-                                                streaming_roi=True))
+    # The streaming-ROI mode is ported now (its parity tests are in
+    # tests/test_torch_monitor_streaming.py): both ways of asking for it
+    # construct a monitor in that mode, with no rings before calibrating.
+    for mon in (_monitor(_clip(4), streaming_roi=True),
+                _monitor(_clip(4), config=MonitorConfig(
+                    calibration=SMALL_CAL, streaming_roi=True))):
+        assert mon.config.streaming_roi
+        assert mon._streaming_state is None and mon.relocks == 0
 
 
 def test_constructor_defaults_to_the_card_and_raises_without_one():

@@ -95,6 +95,7 @@ def test_gauss_level_fuses_at_most_two_levels():
 
 @pytest.mark.parametrize("shape,levels,skip", [
     ((2, 480, 640), 9, 4),
+    ((1, 480, 640), 9, 4),    # T = 1: one absorbed streaming frame
     ((2, 480, 640), 9, 1),    # skip_top < s: the lap_level route
     ((1, 480, 640), 9, 0),
     ((2, 481, 643), 9, 4),
@@ -255,7 +256,8 @@ def test_tiling_model_equals_plain_pyr_down(h, w, d, rows, cols, wide, seed):
 
 
 @pytest.mark.parametrize("h,w", [(1, 1), (2, 2), (1, 2), (2, 9), (5, 7),
-                                 (481, 643), (480, 640), (135, 240)])
+                                 (481, 643), (480, 640), (135, 240),
+                                 (1080, 1920), (270, 480)])
 @pytest.mark.parametrize("d", range(1, pc.MAX_FUSED + 1))
 def test_kernel_tiles_equal_plain_pyr_down(h, w, d):
     # The kernel's own tile sizes: interior, edge and corner tiles of the
@@ -264,3 +266,58 @@ def test_kernel_tiles_equal_plain_pyr_down(h, w, d):
     rows, cols = _kernel_tile(d)
     got = _model_pyr_down(frame, d, rows, cols, w % 4 == 0)
     assert np.array_equal(got, _plain(frame, d))
+
+
+# --- (d) a model of how kernel A's blocks walk the frames --------------------
+
+def _max_grid_z():
+    return int(re.search(r"kMaxGridZ = (\d+);", SOURCE).group(1))
+
+
+def _walk_frames(t_len, groups):
+    """Kernel A's frame loop for every block z of a tile: frame t is
+    computed from stage buffer k & 1 while frame t + groups is copied into
+    the other; every step commits one copy group, empty or not, and waits
+    for all but the newest.  Returns the frames each z computed, checking
+    that the buffer it reads holds the frame it computes, landed."""
+    computed = []
+    for z in range(groups):
+        slots, pending, done = {}, [], []
+        t = z
+        if t < t_len:
+            slots[0] = t
+        pending.append(t if t < t_len else None)      # group 0
+        k = 0
+        while t < t_len:
+            nxt = t + groups
+            if nxt < t_len:
+                slots[(k + 1) & 1] = nxt
+            pending.append(nxt if nxt < t_len else None)
+            landed = pending[:-1]                     # wait_but<1>
+            assert landed[k] == t and slots[k & 1] == t
+            done.append(t)
+            k += 1
+            t += groups
+        computed.append(done)
+    return computed
+
+
+@pytest.mark.parametrize("t_len", [1, 2, 3, 128])
+@pytest.mark.parametrize("h,w,d", [(480, 640, 2), (1080, 1920, 2),
+                                   (270, 480, 1)])
+@pytest.mark.parametrize("resident", [132, 264, 1056])
+def test_frame_walk_computes_every_frame_once(t_len, h, w, d, resident):
+    # launch_down: as many frame groups (grid z) as keep every block
+    # resident, at least 1 and at most T.  At T = 1 (a streaming absorb)
+    # there is one group, and its one frame is computed with no prefetch.
+    rows, cols = _kernel_tile(d)
+    hd, wd = h, w
+    for _ in range(d):
+        hd, wd = (hd + 1) // 2, (wd + 1) // 2
+    tiles = -(-hd // rows) * -(-wd // cols)
+    groups = min(max(resident // tiles, 1), t_len, _max_grid_z())
+    computed = _walk_frames(t_len, groups)
+    frames = sorted(t for done in computed for t in done)
+    assert frames == list(range(t_len))
+    if t_len == 1:
+        assert groups == 1 and computed == [[0]]
