@@ -25,7 +25,14 @@ rings absorb (``phase_streaming_kernels``), the streaming localizer on a
 drifting subject in both modes (``phase_monitor_streaming``) and its warm
 recovery through the blackout (``phase_monitor_warm_recovery``); and the
 IIR temporal filter (``temporal_filter="iir"``) in the 120x160 cross-check
-and a 640x480 calibration (``phase_iir_locate``).  Each phase prints one
+and a 640x480 calibration (``phase_iir_locate``).  The multi-stream fleet
+(``parallel.streams.MultiStreamMonitor``, the stream axis a batch
+dimension): 4 streams of 640x480 in flow mode, calibrated and measured
+(``phase_fleet``), fed by the ``FleetFeeder`` (``phase_fleet_feeder``), a
+small fleet on the card against the CPU (``phase_fleet_cross_check``), 4
+drifting subjects in streaming-ROI mode (``phase_fleet_streaming``), the
+64 x 1080p deployment of bench.py's fleet bench (``phase_fleet_1080p``) and
+K1 at the fleet's shapes (``phase_fleet_kernels``).  Each phase prints one
 JSON line; then each phase's seconds, the kernel table, the card's name
 and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -748,6 +755,8 @@ def slice_frames(dev):
 # The live monitor's clip: frame 0, 128 calibration frames, 1 dropped, 96
 # measured.
 MONITOR_FRAMES = 1 + 128 + 1 + 96
+# The flow profiler pass's clip: 48 measured frames.
+PROFILE_FRAMES = 1 + 128 + 1 + 48
 
 # The recovery clip: 1 + 128 calibration frames + 1 dropped, 30 measured,
 # a 15-frame blackout, then room to recalibrate (1 + 128 + 1) and to
@@ -975,7 +984,8 @@ def phase_flow_profile(frames):
             n_kernels += 1
             device_us += ev.time_range.elapsed_us()
     check(device_us > 0, "the profiler saw device activity")
-    emit({"phase": "flow_profile", "process_clip_s": plain_s,
+    emit({"phase": "flow_profile", "frames": list(frames.shape),
+          "process_clip_s": plain_s,
           "profiled_process_clip_s": profiled_s,
           "device_kernels_and_copies": n_kernels,
           "device_busy_s": device_us / 1e6,
@@ -1058,9 +1068,13 @@ class split_timer:
     mode each absorb into the rings, each localize over them and each
     re-lock, each to the end of its device work; and count each fit's LM
     steps (each step solves ``2 * _TR_NEWTON_ITERS + 2`` 3x3 systems).
+    With ``fleet``, the same of the fleet's batched functions (the motion
+    step of S streams, with or without the carried LK cache; the absorb of
+    S frames; the localize of S rings; the masked re-lock).
     ``report()`` gives each one's ms per call and the LM steps per fit."""
 
-    def __init__(self):
+    def __init__(self, fleet: bool = False):
+        self.fleet = fleet
         self.seconds = {"motion_step": [], "estimate_bpm": [],
                         "gauss_fit_f32": [], "gauss_fit_f64": [],
                         "absorb": [], "localize": [], "relock": []}
@@ -1091,16 +1105,23 @@ class split_timer:
         from respmon_tpu_torch.ops import gaussfit
         from respmon_tpu_torch.pipeline import bpm, motion, streaming
 
-        self._saved = [(motion, "measure_step", motion.measure_step),
-                       (bpm, "estimate_bpm", bpm.estimate_bpm),
-                       (gaussfit, "gaussian_fit_batch",
-                        gaussfit.gaussian_fit_batch),
-                       (gaussfit, "_solve3", gaussfit._solve3),
-                       (streaming, "streaming_absorb",
-                        streaming.streaming_absorb),
-                       (streaming, "_localize_window",
-                        streaming._localize_window),
-                       (motion, "relock_state", motion.relock_state)]
+        if self.fleet:
+            timed = [(motion, "measure_step_batch", "motion_step"),
+                     (motion, "measure_step_cached", "motion_step"),
+                     (streaming, "streaming_absorb_batch", "absorb"),
+                     (streaming, "localize_batch", "localize"),
+                     (motion, "relock_state_batch", "relock")]
+        else:
+            timed = [(motion, "measure_step", "motion_step"),
+                     (streaming, "streaming_absorb", "absorb"),
+                     (streaming, "_localize_window", "localize"),
+                     (motion, "relock_state", "relock")]
+        timed.append((bpm, "estimate_bpm", "estimate_bpm"))
+        self._saved = [(module, name, getattr(module, name))
+                       for module, name, _ in timed]
+        self._saved += [(gaussfit, "gaussian_fit_batch",
+                         gaussfit.gaussian_fit_batch),
+                        (gaussfit, "_solve3", gaussfit._solve3)]
         solve3 = gaussfit._solve3
 
         def counted_solve3(*args, **kwargs):
@@ -1108,20 +1129,13 @@ class split_timer:
             return solve3(*args, **kwargs)
 
         gaussfit._solve3 = counted_solve3
-        motion.measure_step = self._timed(motion.measure_step,
-                                          lambda a: "motion_step")
-        bpm.estimate_bpm = self._timed(bpm.estimate_bpm,
-                                       lambda a: "estimate_bpm")
+        for module, name, tag in timed:
+            setattr(module, name, self._timed(getattr(module, name),
+                                              lambda a, tag=tag: tag))
         gaussfit.gaussian_fit_batch = self._timed(
             gaussfit.gaussian_fit_batch,
             lambda a: "gauss_fit_f64" if a[0].dtype == torch.float64
             else "gauss_fit_f32")
-        streaming.streaming_absorb = self._timed(streaming.streaming_absorb,
-                                                 lambda a: "absorb")
-        streaming._localize_window = self._timed(streaming._localize_window,
-                                                 lambda a: "localize")
-        motion.relock_state = self._timed(motion.relock_state,
-                                          lambda a: "relock")
         return self
 
     def __exit__(self, *exc):
@@ -1730,6 +1744,7 @@ def phase_1080p(dev):
     with pyramid_route():
         plain = evm.locate(frames, FPS, cfg)
     check(_bbox(res) == _bbox(plain), "1080p ROI equals the plain path's")
+    roi = _bbox(res)
     _, locate_s = wall_s(lambda: evm.locate(frames, FPS, cfg).x)
     with pyramid_route():
         _, plain_s = wall_s(lambda: evm.locate(frames, FPS, cfg).x)
@@ -1737,7 +1752,563 @@ def phase_1080p(dev):
           "roi": _bbox(res), "launches": launches, "locate_s": locate_s,
           "plain_locate_s": plain_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, roi
+
+
+# The fleet: 4 streams at 640x480, one breathing patch each at its own
+# centre (y, x) and rate; frame 0, 128 calibration frames, 1 dropped, then
+# FLEET_MEASURED measured.  Below 18 BPM two periods do not fit in so few
+# frames, and the estimate reads high (15 gave 17.1 after 96 on the card
+# and on the CPU alike).
+FLEET_BPMS = (18.0, 21.0, 24.0, 27.0)
+FLEET_CENTRES = ((150, 190), (150, 450), (330, 190), (330, 450))
+FLEET_MEASURED = 80
+# The streaming fleet: each subject drifts (dy, dx) over its clip.
+FLEET_DRIFTS = ((30.0, 60.0), (30.0, -60.0), (-30.0, 60.0), (-30.0, -60.0))
+FLEET_STREAM_MEASURED = 24
+# The deployment of bench.py's main_multistream: 64 streams of 1080p.
+FLEET_1080P_STREAMS = 64
+
+
+def fleet_clips(num_frames, drifts=None, height=480, width=640,
+                centres=FLEET_CENTRES, bpms=FLEET_BPMS,
+                patch_size=(80, 100)):
+    """The fleet's u8 clips, (S, T, H, W) on the host: the 640x480 fixture
+    of bench.py:116-125 with one breathing patch per stream at its centre
+    and rate (``centres``, ``bpms``), moving by ``drifts`` over the clip
+    when given.  One thread per stream makes them."""
+    import numpy as np
+
+    from respmon_tpu_torch.io.synthetic import breathing_clip
+
+    drifts = drifts or [(0.0, 0.0)] * len(bpms)
+
+    def one(i):
+        return quantize(breathing_clip(
+            num_frames=num_frames, height=height, width=width, fps=FPS,
+            bpm=bpms[i], patch_center=centres[i], patch_size=patch_size,
+            amplitude=0.12, motion_px=2.0, texture_motion=True,
+            drift_px=drifts[i], seed=i))
+
+    with ThreadPoolExecutor(len(bpms)) as pool:
+        return np.stack(list(pool.map(one, range(len(bpms)))))
+
+
+def fleet_step(mon, frames, stale=None):
+    """One fleet step ending in one host read of its (S,) results: a
+    (4, S) float64 array of samples, BPM, has_bpm and error."""
+    import torch
+
+    res = mon.step(frames, stale=stale)
+    return torch.stack([res.samples.double(), res.bpm.double(),
+                        res.has_bpm.double(),
+                        res.error.double()]).cpu().numpy()
+
+
+def check_k1_fleet(launches, mon, what: str) -> None:
+    """A fleet ran K1 once per single-stream locate, once per chunk of each
+    warm start of its rings (T = S * 128 frames in chunks) and once per
+    absorbed (S, H, W) batch, as read from the monitor's own counters;
+    each call launched what its plan makes."""
+    from respmon_tpu_torch.pipeline import streaming
+
+    cal = mon.cfg.calibration
+    h, w = mon.frame_hw
+    s = len(mon._rois)
+    chunk = max(1, streaming.WARM_START_CHUNK_BYTES // (4 * h * w))
+    calls = (mon.locates
+             + mon.streaming_starts * -(-s * cal.buffer_length // chunk)
+             + mon.streaming_absorbed)
+    planned = planned_launches(h, w, cal.pyramid_levels,
+                               cal.skip_levels_at_top)
+    check(calls >= 1 and {k: launches[k] for k in planned}
+          == {k: n * calls for k, n in planned.items()},
+          f"{what}: K1 {calls} times ({mon.locates} locates, "
+          f"{mon.streaming_starts} warm starts, {mon.streaming_absorbed} "
+          f"absorbs), each {planned}: {launches}")
+
+
+def phase_fleet(clips, cfg=None, device=None, bpms=FLEET_BPMS):
+    """The multi-stream fleet in flow mode on the 4 x 640x480 u8 clips (a
+    host array, staged on the device first): ``calibrate`` on frames
+    1..128, then one ``step`` per measured frame.  Each box equals the
+    single-stream ``locate`` of that stream's buffer, on the kernels and
+    on the plain pyramid; every stream reaches a BPM whose tail median is
+    within 1 of its fixture's rate (``bpms``).  Returns the run's
+    launches, each step's (4, S) results and the boxes."""
+    import numpy as np
+    import torch
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.parallel import streams
+    from respmon_tpu_torch.pipeline import evm
+
+    cfg = cfg or MonitorConfig(motion_extraction_method="flow")
+    cal_len = cfg.calibration.buffer_length
+    frames = torch.from_numpy(clips).to(device or "cuda")
+    s = frames.shape[0]
+    mon = streams.MultiStreamMonitor(cfg, None, tuple(frames.shape[2:]),
+                                     FPS, device=device)
+    reset_launches()
+    loc, cal_s = wall_s(lambda: mon.calibrate(frames[:, 1:cal_len + 1]))
+    rows, step_s = [], []
+    with split_timer(fleet=True) as split:
+        for f in range(cal_len + 2, frames.shape[1]):
+            t0 = time.perf_counter()
+            rows.append(fleet_step(mon, frames[:, f]))
+            step_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    check_k1_fleet(launches, mon, "the fleet")
+    boxes = loc.boxes.cpu().tolist()
+    check(bool(loc.found.all()), f"every stream found an ROI: {boxes}")
+    for i in range(s):
+        one = _bbox(evm.locate(frames[i, 1:cal_len + 1], FPS,
+                               cfg.calibration))
+        with pyramid_route():
+            plain = _bbox(evm.locate(frames[i, 1:cal_len + 1], FPS,
+                                     cfg.calibration))
+        check(boxes[i] == one == plain,
+              f"stream {i}: fleet box {boxes[i]} equals the single-stream "
+              f"locate's {one} and the plain route's {plain}")
+    res = np.stack(rows)                      # (steps, 4, S)
+    bpm, has, err = res[:, 1], res[:, 2] > 0, res[:, 3] > 0
+    tails = [float(np.median(bpm[has[:, i], i][-10:]))
+             if has[:, i].any() else None for i in range(s)]
+    stats = _ms_stats(step_s)
+    emit({"phase": "fleet_640x480_flow", "streams": s,
+          "frames": list(frames.shape), "boxes": boxes,
+          "launches": launches, "locates": mon.locates,
+          "calibrate_s": cal_s, "step_ms": stats,
+          "stream_frames_per_s": s / (stats["median"] / 1e3),
+          "bpm_tail_median": tails, "fixture_bpm": list(bpms),
+          "bpm_count": has.sum(axis=0).tolist(),
+          "errors": err.sum(axis=0).tolist(), "split_ms": split.report()})
+    check(not err.any(), f"no stream lost tracking: {err.sum(axis=0)}")
+    for i in range(s):
+        check(tails[i] is not None and abs(tails[i] - bpms[i]) <= 1.0,
+              f"stream {i}: tail median BPM {tails[i]} within 1 of "
+              f"{bpms[i]}")
+    return launches, res, boxes
+
+
+def _full_rings(mon, s, n, device, seed=0):
+    """Install full signal rings in a fleet's states (a sine at 0.3 Hz a
+    stream, its phase from a seed, and a little noise), as bench.py's
+    fleet bench does before timing: a deployed fleet's every step fits
+    the peaks of 128-sample rings."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float32) / FPS
+    phases = rng.uniform(0, 2 * np.pi, s).astype(np.float32)
+    ring = (0.15 * np.sin(2 * np.pi * 0.3 * t[None, :] + phases[:, None])
+            + 0.01 * rng.standard_normal((s, n)).astype(np.float32))
+    full = torch.full((s,), n, dtype=torch.int32, device=device)
+    mon.states = mon.states._replace(
+        data=torch.from_numpy(ring).to(device),
+        t=torch.from_numpy(np.broadcast_to(t, (s, n)).copy()).to(device),
+        count=full, motion_count=full)
+
+
+def phase_fleet_cross_check(device=None, steps=4):
+    """A small fleet (3 streams at 120x160) on the card against the CPU,
+    after the same calibration and with the same full rings installed: in
+    average mode equal ROIs and has_bpm and BPM within rtol 1e-5, in
+    float32 flow mode equal ROIs and BPM within 1 (float32 tracking
+    drifts between the two, ROADMAP.md queue 3)."""
+    import dataclasses
+
+    import numpy as np
+
+    from respmon_tpu_torch.config import CalibrationConfig, MonitorConfig
+    from respmon_tpu_torch.io.synthetic import breathing_clip
+    from respmon_tpu_torch.parallel import streams
+
+    cal = CalibrationConfig(buffer_length=64, pyramid_levels=6,
+                            skip_levels_at_top=2)
+    clips = np.stack([breathing_clip(
+        num_frames=64 + 1 + steps, height=120, width=160, fps=FPS, bpm=bpm,
+        patch_center=(60, 80), patch_size=(30, 40), amplitude=0.12,
+        motion_px=2.0, texture_motion=True, seed=i)
+        for i, bpm in enumerate((15.0, 18.0, 21.0))])
+    out = {}
+    for method in ("average", "flow"):
+        cfg = MonitorConfig(calibration=cal, motion_extraction_method=method)
+        runs = {}
+        for where in (device, "cpu"):
+            mon = streams.MultiStreamMonitor(cfg, None, (120, 160), FPS,
+                                             device=where)
+            mon.calibrate(clips[:, :64])
+            _full_rings(mon, 3, cfg.measure.buffer_length, mon.device)
+            runs[where] = (mon, [fleet_step(mon, clips[:, 65 + k])
+                                 for k in range(steps)])
+        (card, a), (cpu, b) = runs[device], runs["cpu"]
+        check(device is not None or card.device.type == "cuda",
+              "the fleet runs on the card by default")
+        check(np.array_equal(card._rois, cpu._rois)
+              and np.array_equal(card.states.roi.cpu().numpy(),
+                                 cpu.states.roi.numpy()),
+              f"{method}: ROIs {card._rois.tolist()} equal the CPU's")
+        a, b = np.stack(a), np.stack(b)
+        has = a[:, 2] > 0
+        check(has.any(), f"{method}: the small fleet reached a BPM")
+        if method == "average":
+            check(np.array_equal(has, b[:, 2] > 0),
+                  f"{method}: has_bpm equal")
+            gap = float(np.max(np.abs(a[:, 1][has] - b[:, 1][has])
+                               / np.abs(b[:, 1][has])))
+            check(gap <= 1e-5, f"{method}: BPM within rtol 1e-5 ({gap})")
+        else:
+            both = has & (b[:, 2] > 0)
+            gap = float(np.max(np.abs(a[:, 1][both] - b[:, 1][both])))
+            check(gap <= 1.0, f"{method}: BPM within 1 of the CPU's ({gap})")
+        out[method] = {"rois": card._rois.tolist(), "bpm_gap": gap,
+                       "samples_max_abs_vs_cpu": float(np.nanmax(
+                           np.abs(a[:, 0] - b[:, 0])))}
+    emit({"phase": "fleet_cross_check_120x160", "streams": 3,
+          "steps": steps, **out})
+
+
+class absorb_checker:
+    """Inside the ``with`` block, hold every fleet warm start and every
+    absorb (``streaming.init_streaming_from_buffers_batch``,
+    ``streaming_absorb_batch``) against the same call on the plain pyramid,
+    bit for bit; ``calls`` counts them, and ``absorb_s`` holds each
+    absorb's own time (to the end of its device work, the check left
+    out)."""
+
+    def __enter__(self):
+        import torch
+
+        from respmon_tpu_torch.pipeline import streaming
+
+        self.calls = 0
+        self.absorb_s = []
+        self._saved = [(name, getattr(streaming, name)) for name in
+                       ("init_streaming_from_buffers_batch",
+                        "streaming_absorb_batch")]
+
+        def checked(name, fn):
+            def call(*args, **kwargs):
+                out, seconds = wall_s(lambda: fn(*args, **kwargs))
+                if name == "streaming_absorb_batch":
+                    self.absorb_s.append(seconds)
+                with pyramid_route():
+                    ref = fn(*args, **kwargs)
+                check(all(torch.equal(a, b) for a, b in
+                          zip(out.levels, ref.levels)),
+                      f"{name} equals its plain version bit for bit")
+                self.calls += 1
+                return out
+            return call
+
+        for name, fn in self._saved:
+            setattr(streaming, name, checked(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from respmon_tpu_torch.pipeline import streaming
+
+        for name, fn in self._saved:
+            setattr(streaming, name, fn)
+        return False
+
+
+def phase_fleet_streaming(clips, cfg=None, device=None,
+                          centres=FLEET_CENTRES, drifts=FLEET_DRIFTS):
+    """The fleet in streaming-ROI mode (coarse localize every 8 steps,
+    drift 4 px) on 4 drifting 640x480 u8 subjects (a host array), in
+    average and in flow mode: no stream errs, the fleet re-locks at least
+    4 times, each subject's final centre lies in its final ROI, the
+    device's ROIs equal the host's mirror, the warm start and every absorb
+    equal their plain versions bit for bit, and K1 launches as the
+    monitor's counters imply.  Returns the launches of each run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.parallel import streams
+
+    cfg = dataclasses.replace(cfg or MonitorConfig(), streaming_roi=True)
+    cal_len = cfg.calibration.buffer_length
+    frames = torch.from_numpy(clips).to(device or "cuda")
+    s = frames.shape[0]
+    finals = [(c[0] + d[0], c[1] + d[1]) for c, d in zip(centres, drifts)]
+    launches = {}
+    for method in ("average", "flow"):
+        mcfg = dataclasses.replace(cfg, motion_extraction_method=method)
+        mon = streams.MultiStreamMonitor(mcfg, None,
+                                         tuple(frames.shape[2:]), FPS,
+                                         device=device)
+        reset_launches()
+        errors, step_s, trail = 0, [], []
+        # The checker wraps first, so the split's absorb times wrap it.
+        with absorb_checker() as absorbs, split_timer(fleet=True) as split:
+            _, cal_s = wall_s(lambda: mon.calibrate(
+                frames[:, 1:cal_len + 1]))
+            trail.append(mon._rois.tolist())
+            for f in range(cal_len + 2, frames.shape[1]):
+                t0 = time.perf_counter()
+                res = fleet_step(mon, frames[:, f])
+                step_s.append(time.perf_counter() - t0)
+                errors += int((res[3] > 0).sum())
+                if mon._rois.tolist() != trail[-1]:
+                    trail.append(mon._rois.tolist())
+        launches[method] = read_launches()
+        check_k1_fleet(launches[method], mon, f"the {method} fleet")
+        check(absorbs.calls == 1 + mon.streaming_absorbed,
+              f"{method}: the warm start and {mon.streaming_absorbed} "
+              f"absorbs held to the plain pyramid ({absorbs.calls})")
+        check(errors == 0, f"{method}: no stream erred ({errors})")
+        check(mon.relocks >= 4, f"{method}: {mon.relocks} re-locks")
+        for i, (fy, fx) in enumerate(finals):
+            x, y, w, h = mon._rois[i]
+            check(x <= fx <= x + w and y <= fy <= y + h,
+                  f"{method}: stream {i}'s final centre {(fy, fx)} lies in "
+                  f"its final ROI {mon._rois[i].tolist()}")
+        check(np.array_equal(mon.states.roi.cpu().numpy(), mon._rois),
+              f"{method}: the device's ROIs equal the host's mirror")
+        # The split's absorb holds the plain check too; the checker times
+        # the absorb alone.
+        split_ms = split.report()
+        split_ms["absorb"] = _ms_stats(absorbs.absorb_s)
+        emit({"phase": f"fleet_streaming_640x480_{method}", "streams": s,
+              "frames": list(frames.shape), "relocks": mon.relocks,
+              "rois": trail, "final_subject_centres_yx": finals,
+              "launches": launches[method], "calibrate_s": cal_s,
+              "streaming_absorbed": mon.streaming_absorbed,
+              "step_ms": _ms_stats(step_s), "split_ms": split_ms})
     return launches
+
+
+def phase_fleet_1080p(roi, device=None, streams_n=FLEET_1080P_STREAMS,
+                      frame_hw=(1080, 1920), cfg=None):
+    """bench.py's main_multistream (bench.py:771-899) on the card: the
+    1080p locate's box tiled over 64 streams, three u8 (64,1080,1920)
+    batches rolled by 0, 1 and 2 px so LK does real work, full rings
+    installed before timing.  Times the step over 10 steps with one host
+    read at the end and over 3 with a read after every step, the float64
+    refit tier over 3 steps (its LM steps counted), and in streaming-ROI mode
+    the step with an absorb (K1 at (64,1080,1920), held to the plain
+    pyramid on one batch) and with a coarse update.  Returns the streaming
+    run's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.parallel import streams
+    from respmon_tpu_torch.pipeline import motion, streaming
+
+    cfg = dataclasses.replace(cfg or MonitorConfig(),
+                              motion_extraction_method="flow")
+    h_f, w_f = frame_hw
+    s = streams_n
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    boxes = np.tile(np.asarray([roi], np.int32), (s, 1))
+    spec = motion.MeasureSpec.for_roi(cfg, h_f, w_f, roi[2], roi[3], FPS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base = torch.trunc((torch.rand((s, h_f, w_f), generator=gen,
+                                   device=dev) * 0.2 + 0.4) * 255.0)
+    batches = [torch.roll(base, k, dims=2).to(torch.uint8) for k in range(3)]
+    del base
+
+    def fleet(c):
+        mon = streams.MultiStreamMonitor(c, None, (h_f, w_f), FPS,
+                                         device=device)
+        mon.spec = spec
+        mon.states = streams.init_stream_states(spec, boxes, device=device)
+        mon._rois = boxes.copy()
+        return mon
+
+    def steps(mon, n, read_each, first=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            res = mon.step(batches[(first + i) % 3])
+            if read_each:
+                res.samples.cpu()
+        res.samples.cpu()
+        return (time.perf_counter() - t0) / n
+
+    mon = fleet(cfg)
+    first_s = [steps(mon, 1, True, i) for i in range(3)]   # corners first
+    _full_rings(mon, s, cfg.measure.buffer_length, dev)
+    steps(mon, 1, True)              # the LK cache's rebuild step
+    pipelined = steps(mon, 10, False, 1)
+    read_each = steps(mon, 3, True, 2)
+
+    # The float64 refit tier from the same states.
+    cfg64 = dataclasses.replace(cfg, fleet_f64_refine=True)
+    mon64 = fleet(cfg64)
+    mon64.states, mon64._needs_init = mon.states, False
+    with split_timer(fleet=True) as split64:
+        f64_steps = [steps(mon64, 1, True, i) for i in range(3)]
+    lm64 = split64.report()
+
+    # Streaming ROI: 7 steps with an absorb, then one with a coarse update.
+    mons = fleet(dataclasses.replace(cfg, streaming_roi=True))
+    mons.states, mons._needs_init = mon.states, False
+    mons._streaming = streams.init_fleet_streaming(
+        (h_f, w_f), cfg.calibration, s, device=device)
+    reset_launches()
+    with split_timer(fleet=True) as splits:
+        stream_steps = [steps(mons, 1, True, i)
+                        for i in range(cfg.streaming_interval)]
+    launches = read_launches()
+    check_k1_fleet(launches, mons, "the 64 x 1080p streaming fleet")
+    ring0 = streams.init_fleet_streaming((h_f, w_f), cfg.calibration, s,
+                                         device=device)
+    got = streaming.streaming_absorb_batch(ring0, batches[0],
+                                           cfg.calibration)
+    with pyramid_route():
+        ref = streaming.streaming_absorb_batch(ring0, batches[0],
+                                               cfg.calibration)
+    err = max_abs(got.levels, ref.levels)
+    check(err == 0.0, f"K1 at ({s},{h_f},{w_f}) equals its plain version "
+          f"bit for bit (max |d| {err})")
+    rep = splits.report()
+    emit({"phase": "fleet_1080p_flow", "streams": s, "roi": list(roi),
+          "crop": [spec.crop_h, spec.crop_w],
+          "first_steps_ms": [x * 1e3 for x in first_s],
+          "step_ms_pipelined": pipelined * 1e3,
+          "step_ms_read_each": read_each * 1e3,
+          "stream_frames_per_s": s / pipelined,
+          "realtime_margin_at_10fps": (1.0 / FPS) / pipelined,
+          "f64_refine": {"step_ms": [x * 1e3 for x in f64_steps],
+                         "stream_frames_per_s": s / statistics.median(
+                             f64_steps),
+                         "realtime_margin_at_10fps": (1.0 / FPS)
+                         / statistics.median(f64_steps),
+                         "split_ms": lm64},
+          "streaming": {"absorb_step_ms": [x * 1e3
+                                           for x in stream_steps[:-1]],
+                        "update_step_ms": stream_steps[-1] * 1e3,
+                        "relocks": mons.relocks, "launches": launches,
+                        "split_ms": rep},
+          "k1_absorb_max_abs_err": err,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+          if dev.type == "cuda" else None})
+    return launches
+
+
+def phase_fleet_kernels(dev):
+    """K1 at the fleet's shapes: the absorb of 4 640x480 frames and of 64
+    1080p frames (T = S), and the warm start of 4 streams' 128 frames
+    (T = S * 128, one chunk): bit-equality with the plain version, ms from
+    CUDA events, the plain version's ms and the bound."""
+    import torch
+
+    from respmon_tpu_torch.ops import pyramid_cuda as pc
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for t_len, h, w, path in [
+            (4, 480, 640, "fleet_streaming_640x480_flow"),
+            (512, 480, 640, "fleet_streaming_640x480_flow"),
+            (FLEET_1080P_STREAMS, 1080, 1920, "fleet_1080p_streaming")]:
+        levels, skip = 9, 4
+        v = torch.rand((t_len, h, w), generator=gen, device=dev)
+        got = pc.laplacian_band_levels(v, levels, skip)
+        err = max_abs(got, pc.laplacian_band_levels_ref(v, levels, skip))
+        check(err == 0.0, f"K1 ({t_len},{h},{w}) equals its plain version "
+              f"bit for bit (max |d| {err})")
+        del got
+
+        def call():
+            return pc.laplacian_band_levels(v, levels, skip)
+
+        def plain():
+            return pc.laplacian_band_levels_ref(v, levels, skip)
+
+        row = {"name": f"laplacian_band_levels (K1 at T = {t_len})",
+               "kernels": ["pyr_down_levels_f32", "pyr_tail_f32"],
+               "route": "cuda", "source": PYRAMID_CU,
+               "replaces": f"{PALLAS}:314", "counter": "pyr_tail",
+               "path": path, "shape": [t_len, h, w], "levels": levels,
+               "skip": skip, "max_abs_err": err,
+               "ms": cuda_ms(call, repeats=5, calls=2),
+               "plain_ms": cuda_ms(plain, repeats=3),
+               **k1_bound(t_len, h, w, levels, skip), "library_ms": None}
+        emit({"phase": "fleet_kernels", **row})
+        rows.append(row)
+        del v
+    return rows
+
+
+def phase_fleet_feeder(clips, fleet_rows, fleet_boxes, cfg=None,
+                       device=None, ticks=8, live_ticks=4):
+    """``FleetFeeder`` over 4 ``ArrayCapture`` sources of the fleet's clips
+    (frame 0 left out, as the monitor's initialize step eats it).  Lossless:
+    ``collect_buffer(128)`` is the clips' calibration frames and calibrates
+    the fleet to ``phase_fleet``'s boxes; after the dropped frame, ``ticks``
+    batches give ``phase_fleet``'s first ``ticks`` steps bit for bit.  Live:
+    ``live_ticks`` freshest-frame batches, gathered by the C++
+    ``rings_collect_latest``; prints the stale rows fed and the frames
+    dropped.  Returns nothing."""
+    import numpy as np
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.io import native
+    from respmon_tpu_torch.io.capture import ArrayCapture
+    from respmon_tpu_torch.parallel import streams
+    from respmon_tpu_torch.runtime.fleet_feeder import FleetFeeder
+
+    cfg = cfg or MonitorConfig(motion_extraction_method="flow")
+    cal_len = cfg.calibration.buffer_length
+    check(native.load_native() is not None, "the native library loaded")
+
+    def feeder(lossless, fps_limit=None):
+        f = FleetFeeder([ArrayCapture(c[1:], fps=FPS) for c in clips],
+                        capacity=4, lossless=lossless, dtype=np.uint8,
+                        fps_limit=fps_limit)
+        check(all(r._lib is not None for r in f._rings),
+              "every ring of the fleet feeder is native")
+        return f.start()
+
+    fed = feeder(lossless=True)
+    buf, collect_s = wall_s(lambda: fed.collect_buffer(cal_len,
+                                                       timeout=30.0))
+    check(buf is not None and np.array_equal(buf, clips[:, 1:cal_len + 1]),
+          "collect_buffer gave the clips' calibration frames")
+    mon = streams.MultiStreamMonitor(cfg, None, clips.shape[2:], FPS,
+                                     device=device)
+    boxes = mon.calibrate(buf).boxes.cpu().tolist()
+    check(boxes == fleet_boxes, f"fed calibration {boxes} equals the "
+          f"direct one's {fleet_boxes}")
+    fed.next_batch(timeout=30.0)              # the frame dropped at locate
+    for k in range(ticks):
+        b = fed.next_batch(timeout=30.0)
+        got = fleet_step(mon, b.frames, stale=b.stale)
+        check(np.array_equal(got, fleet_rows[k], equal_nan=True),
+              f"fed step {k} equals the direct step bit for bit")
+    fed.stop()
+    check(mon.stale_rows == 0, "lossless ticks are never stale")
+
+    live = feeder(lossless=False, fps_limit=FPS)
+    collects = native.NATIVE_COLLECTS
+    live_s = []
+    for _ in range(live_ticks):
+        b = live.next_batch(timeout=30.0)
+        t0 = time.perf_counter()
+        fleet_step(mon, b.frames, stale=b.stale)
+        live_s.append(time.perf_counter() - t0)
+    dropped = live.dropped.tolist()
+    live.stop()
+    check(native.NATIVE_COLLECTS > collects,
+          "the C++ rings_collect_latest gathered the live batches")
+    emit({"phase": "fleet_feeder_640x480", "streams": len(clips),
+          "collect_buffer_s": collect_s, "lossless_ticks": ticks,
+          "live_ticks": live_ticks,
+          "native_collects": native.NATIVE_COLLECTS - collects,
+          "live_stale_rows": mon.stale_rows, "live_dropped": dropped,
+          "live_step_ms": _ms_stats(live_s)})
 
 
 def main() -> int:
@@ -1757,6 +2328,9 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         seconds[fn.__name__] = time.perf_counter() - t0
+        print(f"chip_smoke: {fn.__name__} {seconds[fn.__name__]:.1f} s, "
+              f"{time.perf_counter() - start:.1f} s in all", file=sys.stderr,
+              flush=True)
         return out
 
     card = timed(phase_device)
@@ -1772,14 +2346,16 @@ def main() -> int:
     k3_launches = timed(phase_k3_locate, frames, roi)
     timed(phase_iir_locate, frames, roi)
     flow_launches = timed(phase_flow_slice, frames, roi)
-    timed(phase_flow_profile, frames)
+    # The profiler pass over the clip's first PROFILE_FRAMES frames (48
+    # measured), for the script's time.
+    timed(phase_flow_profile, frames[:PROFILE_FRAMES])
     host_frames = frames.cpu().numpy()
     del frames
     # The live monitor over the clip's first MONITOR_FRAMES frames (96
-    # measured), and the fed one over its first 60.
+    # measured), and the fed one over its first 30.
     monitor_launches, average_mon = timed(phase_monitor,
                                           host_frames[:MONITOR_FRAMES])
-    timed(phase_feeder, host_frames, average_mon)
+    timed(phase_feeder, host_frames, average_mon, measured=30)
     del host_frames
     streaming_launches = timed(phase_streaming, dev)
     stream_monitor_launches = timed(phase_monitor_streaming,
@@ -1789,7 +2365,17 @@ def main() -> int:
     warm_launches = timed(phase_monitor_warm_recovery, recovery,
                           cold_fault_to_bpm=cold_frames)
     del recovery
-    launches_1080p = timed(phase_1080p, dev)
+    launches_1080p, roi_1080p = timed(phase_1080p, dev)
+    fleet = fleet_clips(1 + 128 + 1 + FLEET_MEASURED)
+    fleet_launches, fleet_rows, fleet_boxes = timed(phase_fleet, fleet)
+    timed(phase_fleet_feeder, fleet, fleet_rows, fleet_boxes)
+    del fleet
+    timed(phase_fleet_cross_check)
+    drifting = fleet_clips(1 + 128 + 1 + FLEET_STREAM_MEASURED, FLEET_DRIFTS)
+    fleet_stream_launches = timed(phase_fleet_streaming, drifting)
+    del drifting
+    fleet_1080p_launches = timed(phase_fleet_1080p, roi_1080p)
+    kernels += timed(phase_fleet_kernels, dev)
 
     # Each path was driven with every count at 0 just before it and read
     # just after.  ``launches`` is the count on the kernel's own path: the
@@ -1809,7 +2395,12 @@ def main() -> int:
                  stream_monitor_launches["average"],
              "monitor_streaming_640x480_flow":
                  stream_monitor_launches["flow"],
-             "monitor_warm_recovery_640x480": warm_launches}
+             "monitor_warm_recovery_640x480": warm_launches,
+             "fleet_640x480_flow": fleet_launches,
+             "fleet_streaming_640x480_average":
+                 fleet_stream_launches["average"],
+             "fleet_streaming_640x480_flow": fleet_stream_launches["flow"],
+             "fleet_1080p_streaming": fleet_1080p_launches}
     own_path = {"pyr_down_levels_d2": "flow_640x480",
                 "pyr_down_levels_d1": "locate_1080p",
                 "pyr_tail": "flow_640x480",

@@ -115,11 +115,12 @@ class MonitorConfig:
     streaming_roi: bool = False
     streaming_interval: int = 8         # frames between streaming updates
     streaming_drift_px: float = 4.0     # min center drift to re-lock
-    # Fleet BPM f64 refinement: whether a multi-stream fleet runs the
-    # wild-fit refinement of ``MeasureConfig.f64_refine``; the
-    # single-stream monitor and the whole-clip path always follow
-    # ``MeasureConfig.f64_refine``.  (Carried for round-trips; the port has
-    # no fleet yet.)
+    # Fleet BPM f64 refinement: whether a multi-stream fleet
+    # (``parallel.streams.MultiStreamMonitor``) runs the wild-fit
+    # refinement of ``MeasureConfig.f64_refine``; the single-stream monitor
+    # and the whole-clip path always follow ``MeasureConfig.f64_refine``.
+    # Off by default, as in the JAX package (one persistent suspect lane
+    # makes every lockstep step pay the refit loop).
     fleet_f64_refine: bool = False
     # Fleet LK prev-window extraction: True forces the exact per-point
     # slice path in fleets.  The port has one LK path, the exact one, and

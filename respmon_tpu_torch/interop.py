@@ -7,7 +7,10 @@ port's class of the same name, without importing that package.  A
 ``MeasureState`` travels as ``{field: numpy array}``, the form
 ``respmon_tpu/runtime/checkpoint.py`` writes; in flow mode it carries the
 tracked points, the previous crop and the motion ring, so a measurement
-begun in one package continues in the other.  A ``StreamingState`` (the
+begun in one package continues in the other; a fleet's batched state is
+the same with a leading stream axis on every array.  The fleet's carried LK
+cache (``FlowCache``) travels as ``{"stacks.0": array, ...}``, one
+(S, 3, Hp, Wp) stack per pyramid level.  A ``StreamingState`` (the
 streaming localizer's rings) travels as ``{"count": array, "levels.0":
 array, "levels.1": array, ...}``, one ring per kept level in order.
 """
@@ -22,7 +25,7 @@ import torch
 
 from respmon_tpu_torch import config as config_mod
 from respmon_tpu_torch import device as device_mod
-from respmon_tpu_torch.pipeline.motion import MeasureState
+from respmon_tpu_torch.pipeline.motion import FlowCache, MeasureState
 from respmon_tpu_torch.pipeline.streaming import StreamingState
 
 _CONFIG_CLASSES = {cls.__name__: cls for cls in (
@@ -110,3 +113,23 @@ def streaming_state_to_numpy(st: StreamingState) -> dict:
     for k, ring in enumerate(st.levels):
         out[f"levels.{k}"] = ring.detach().cpu().numpy()
     return out
+
+
+def flow_cache_from_numpy(d: Mapping[str, np.ndarray],
+                          device=None) -> FlowCache:
+    """A port ``FlowCache`` from ``{"stacks.<k>": ...}`` (dtypes kept), on
+    the card unless ``device`` says otherwise."""
+    n = sum(1 for k in d if k.startswith("stacks."))
+    keys = [f"stacks.{k}" for k in range(n)]
+    missing = [k for k in keys if k not in d]
+    if missing or n == 0:
+        raise KeyError(f"FlowCache fields missing: {missing or ['stacks.0']}")
+    device = device_mod.resolve(device)
+    return FlowCache(stacks=tuple(
+        torch.from_numpy(np.array(d[k], copy=True)).to(device) for k in keys))
+
+
+def flow_cache_to_numpy(cache: FlowCache) -> dict:
+    """``{"stacks.<k>": array}`` of a port ``FlowCache``."""
+    return {f"stacks.{k}": s.detach().cpu().numpy()
+            for k, s in enumerate(cache.stacks)}

@@ -1,9 +1,9 @@
-# Copied from respmon_tpu/io/native.py:1-191 (the loader builds the port's
-# own copy of the source; the fleet's collect_latest left out).
+# Copied from respmon_tpu/io/native.py (the loader builds the port's own
+# copy of the source).
 """ctypes bindings for the native host runtime (``csrc/resp_native.cpp``).
 
 Provides the C++ SPSC frame ring and fused color conversions used by the
-frame feeder.  The host C++ compiler builds the library on first use
+frame feeder, and the fleet's freshest-frame collection across rings.  The host C++ compiler builds the library on first use
 (``ops/_build``, into ``build/respmon_tpu_torch/``); every entry point has a
 pure-numpy fallback, so the framework works without a compiler (at reduced
 host throughput).
@@ -56,6 +56,9 @@ def load_native() -> Optional[ctypes.CDLL]:
                                        ctypes.c_int64]
         lib.f32_to_u8_wrap.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                        ctypes.c_int64]
+        lib.rings_collect_latest.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -182,3 +185,37 @@ class FrameRing:
         ptr = getattr(self, "_ptr", None)
         if lib is not None and ptr:
             lib.ring_destroy(ptr)
+
+
+# How many times ``collect_latest`` went through the C++ collector; a
+# check that the native path served a fleet reads it.
+NATIVE_COLLECTS = 0
+
+
+def collect_latest(rings, batch_f32: np.ndarray,
+                   seqs_out: np.ndarray) -> None:
+    """Freshest-frame collection across ``rings`` into a persistent
+    (S, slot_floats) float32 batch (rows of untouched streams keep their
+    previous frame; their ``seqs_out`` entry is -1).
+
+    One native call when the C++ layer is loaded and every ring is native;
+    otherwise a per-ring Python loop with identical semantics.
+    """
+    global NATIVE_COLLECTS
+    s = len(rings)
+    assert batch_f32.shape == (s, rings[0]._n) and \
+        batch_f32.dtype == np.float32 and batch_f32.flags["C_CONTIGUOUS"]
+    assert seqs_out.shape == (s,) and seqs_out.dtype == np.int64
+    lib = load_native()
+    if lib is not None and all(r._lib is not None for r in rings):
+        ptrs = (ctypes.c_void_p * s)(*[r._ptr for r in rings])
+        lib.rings_collect_latest(ptrs, s, batch_f32.ctypes.data,
+                                 rings[0]._n, seqs_out.ctypes.data)
+        NATIVE_COLLECTS += 1
+        return
+    for i, r in enumerate(rings):
+        frame, seq = r.pop_latest()
+        seqs_out[i] = seq
+        if frame is not None:
+            raw = np.ascontiguousarray(frame).view(np.uint8).reshape(-1)
+            batch_f32[i].view(np.uint8)[:raw.size] = raw

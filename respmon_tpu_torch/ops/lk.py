@@ -29,7 +29,10 @@ the padded level image, fetched for all points with one advanced-index
 gather.  The Newton iterations run for the whole point set at once with
 masked convergence (no per-point control flow); the loop stops early once no
 point is active, which reads one flag from the device per iteration and is
-bit-identical to running all iterations.  ``FlowResult.iterations`` counts
+bit-identical to running all iterations.  ``lk_track_precomputed`` also
+takes a leading stream axis (the fleet's S streams, each point gathering
+from its own stream's images): one Newton loop and one flag read per
+iteration serve all streams, where the JAX package ``vmap``s the tracker.  ``FlowResult.iterations`` counts
 the iterations run.  Images are expected on the uint8 [0,255] value scale (the reference
 converts crops with float_to_uint8 before LK, base.py:364-371), which the
 minEig threshold depends on.
@@ -91,25 +94,33 @@ def _pad_for_windows(img: torch.Tensor, win: int, border: str) -> torch.Tensor:
 
 def _support_grid(padded: torch.Tensor, pad: int, by: torch.Tensor,
                   bx: torch.Tensor, win: int) -> torch.Tensor:
-    """(N, ..., win+1, win+1) support grids of a padded (..., Hp, Wp) array
-    at integer window bases (unpadded coordinates).  The start is clamped
-    into the array as ``jax.lax.dynamic_slice`` clamps it: an advanced-index
-    gather does not, and a point whose window has left the image (flagged
-    by the caller, its window never reaches the output) would read out of
-    range."""
+    """(S, N, ..., win+1, win+1) support grids of padded (S, ..., Hp, Wp)
+    arrays at (S, N) integer window bases (unpadded coordinates); point
+    (s, n) reads stream s.  The start is clamped into the array as
+    ``jax.lax.dynamic_slice`` clamps it: an advanced-index gather does not,
+    and a point whose window has left the image (flagged by the caller, its
+    window never reaches the output) would read out of range."""
     s = win + 1
     hp, wp = padded.shape[-2:]
     k = torch.arange(s, device=padded.device)
-    rows = (by + pad).clamp(0, hp - s)[:, None] + k[None, :]     # (N, s)
-    cols = (bx + pad).clamp(0, wp - s)[:, None] + k[None, :]
-    grid = padded[..., rows[:, :, None], cols[:, None, :]]   # (..., N, s, s)
-    return grid.movedim(-3, 0)
+    rows = (by + pad).clamp(0, hp - s)[..., None] + k      # (S, N, s)
+    cols = (bx + pad).clamp(0, wp - s)[..., None] + k
+    sidx = torch.arange(padded.shape[0],
+                        device=padded.device)[:, None, None, None]
+    rows = rows[..., :, None]
+    cols = cols[..., None, :]
+    if padded.ndim == 3:
+        return padded[sidx, rows, cols]                    # (S, N, s, s)
+    # Advanced indices around a slice put the broadcast (S, N, s, s) first
+    # and the channel last.
+    return padded[sidx, :, rows, cols].movedim(-1, 2)     # (S, N, C, s, s)
 
 
 def _bilinear(grid: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor):
-    """4-corner bilinear windows (N, ..., win*win) of (N, ..., win+1, win+1)
-    support grids; the weight and add order of the JAX package."""
-    shape = (-1,) + (1,) * (grid.ndim - 1)
+    """4-corner bilinear windows (S, N, ..., win*win) of (S, N, ...,
+    win+1, win+1) support grids; the weight and add order of the JAX
+    package."""
+    shape = fy.shape + (1,) * (grid.ndim - fy.ndim)
     fy = fy.reshape(shape)
     fx = fx.reshape(shape)
     out = (grid[..., :-1, :-1] * (1 - fy) * (1 - fx)
@@ -120,35 +131,43 @@ def _bilinear(grid: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor):
 
 
 def _window_slices3(stack: torch.Tensor, pad: int, by, bx, fy, fx, win: int):
-    """Three (N, win*win) bilinear windows (image, dx, dy) from the
-    channel-stacked (3, Hp, Wp) array, one support grid per point."""
+    """Three (S, N, win*win) bilinear windows (image, dx, dy) from the
+    channel-stacked (S, 3, Hp, Wp) arrays, one support grid per point."""
     w3 = _bilinear(_support_grid(stack, pad, by, bx, win), fy, fx)
-    return w3[:, 0], w3[:, 1], w3[:, 2]
+    return w3[:, :, 0], w3[:, :, 1], w3[:, :, 2]
 
 
 def _window_slices1(img_pad: torch.Tensor, pad: int, by, bx, fy, fx,
                     win: int) -> torch.Tensor:
-    """Bilinear (N, win*win) windows of one padded (Hp, Wp) image."""
+    """Bilinear (S, N, win*win) windows of padded (S, Hp, Wp) images."""
     return _bilinear(_support_grid(img_pad, pad, by, bx, win), fy, fx)
 
 
 def _bases(pts: torch.Tensor, half: float):
-    """Integer window bases and bilinear fractions of (N, 2) positions."""
+    """Integer window bases and bilinear fractions of (S, N, 2) positions."""
     ip = torch.floor(pts - half)
-    fx = (pts[:, 0] - half) - ip[:, 0]
-    fy = (pts[:, 1] - half) - ip[:, 1]
-    return ip[:, 0].to(torch.int32), ip[:, 1].to(torch.int32), fx, fy
+    fx = (pts[..., 0] - half) - ip[..., 0]
+    fy = (pts[..., 1] - half) - ip[..., 1]
+    return ip[..., 0].to(torch.int32), ip[..., 1].to(torch.int32), fx, fy
 
 
 def _track_level(prev_stack: torch.Tensor, next_img: torch.Tensor, hw,
                  prev_pts, next_pts, status, level: int, win: int,
                  max_iters: int, eps2: float, min_eig_thresh: float, dtype):
-    """One pyramid level for ALL points at once (batched Newton loop).
+    """One pyramid level for ALL points of all streams at once (batched
+    Newton loop).
 
-    ``prev_stack`` is the level's padded (3, Hp, Wp) (image, dx, dy) of the
-    previous frame, ``next_img`` the padded (Hp, Wp) image of the next
-    frame, ``hw`` the unpadded level shape.  Returns (points, status, the
-    number of iterations run)."""
+    ``prev_stack`` is the level's padded (S, 3, Hp, Wp) (image, dx, dy) of
+    each stream's previous frame, ``next_img`` the padded (S, Hp, Wp) image
+    of its next frame, ``hw`` the unpadded level shape; points are
+    (S, N, 2).  Without the stream axis on any input it tracks one
+    stream.  Returns (points, status, the number of iterations run)."""
+    if prev_pts.ndim == 2:
+        pts, status, ran = _track_level(
+            prev_stack[None], next_img[None], hw, prev_pts[None],
+            next_pts[None], status[None], level, win, max_iters, eps2,
+            min_eig_thresh, dtype)
+        return pts[0], status[0], ran
     h, w = hw
     half = (win - 1) * 0.5
     pad = win + 2
@@ -157,9 +176,9 @@ def _track_level(prev_stack: torch.Tensor, next_img: torch.Tensor, hw,
     out_prev = (bx < -win) | (bx >= w) | (by < -win) | (by >= h)
     iw, ixw, iyw = _window_slices3(prev_stack, pad, by, bx, fy, fx, win)
 
-    a11 = (ixw * ixw).sum(dim=1)
-    a12 = (ixw * iyw).sum(dim=1)
-    a22 = (iyw * iyw).sum(dim=1)
+    a11 = (ixw * ixw).sum(dim=-1)
+    a12 = (ixw * iyw).sum(dim=-1)
+    a22 = (iyw * iyw).sum(dim=-1)
     # cv2-scale checks: accumulators correspond to (32 g)^2 / 2^20.
     sa11, sa12, sa22 = a11 / 1024.0, a12 / 1024.0, a22 / 1024.0
     det_s = sa11 * sa22 - sa12 * sa12
@@ -171,15 +190,15 @@ def _track_level(prev_stack: torch.Tensor, next_img: torch.Tensor, hw,
     det = a11 * a22 - a12 * a12
     inv_det = torch.where(det.abs() > 0, 1.0 / det, 0.0)
 
-    n = prev_pts.shape[0]
     pts = next_pts
-    prev_delta = torch.zeros((n, 2), dtype=dtype, device=pts.device)
+    prev_delta = torch.zeros(pts.shape, dtype=dtype, device=pts.device)
     done = out_prev | bad_g
-    lost = torch.zeros((n,), dtype=torch.bool, device=pts.device)
+    lost = torch.zeros(done.shape, dtype=torch.bool, device=pts.device)
     iterations = 0
     for j in range(max_iters):
         # The body freezes finished points, so stopping once none is
-        # active is bit-identical to running all max_iters.
+        # active (in any stream) is bit-identical to running all
+        # max_iters.
         if not bool((~(done | lost)).any()):
             break
         iterations += 1
@@ -188,26 +207,26 @@ def _track_level(prev_stack: torch.Tensor, next_img: torch.Tensor, hw,
         jw = _window_slices1(next_img, pad, jby.clamp(-pad, h - 1),
                              jbx.clamp(-pad, w - 1), jfy, jfx, win)
         diff = jw - iw
-        b1 = (diff * ixw).sum(dim=1)
-        b2 = (diff * iyw).sum(dim=1)
+        b1 = (diff * ixw).sum(dim=-1)
+        b2 = (diff * iyw).sum(dim=-1)
         # delta = -G^{-1} b (cv2's closed form).
         dxs = (a12 * b2 - a22 * b1) * inv_det
         dys = (a12 * b1 - a11 * b2) * inv_det
-        delta = torch.stack([dxs, dys], dim=1).to(dtype)
+        delta = torch.stack([dxs, dys], dim=-1).to(dtype)
 
         new_pts = pts + delta
-        small = (delta * delta).sum(dim=1) <= eps2
+        small = (delta * delta).sum(dim=-1) <= eps2
         # cv2 oscillation damper: successive deltas cancel -> half step
         # back.  It compares with the previous iteration's delta of every
         # point, frozen ones included.
-        osc = (delta[:, 0] + prev_delta[:, 0]).abs() < 0.01
-        osc = osc & ((delta[:, 1] + prev_delta[:, 1]).abs() < 0.01)
+        osc = (delta[..., 0] + prev_delta[..., 0]).abs() < 0.01
+        osc = osc & ((delta[..., 1] + prev_delta[..., 1]).abs() < 0.01)
         if j == 0:
             osc = torch.zeros_like(osc)
-        new_pts = torch.where(osc[:, None], new_pts - delta * 0.5, new_pts)
+        new_pts = torch.where(osc[..., None], new_pts - delta * 0.5, new_pts)
 
         active = ~(done | lost)
-        pts = torch.where((active & ~out_next)[:, None], new_pts, pts)
+        pts = torch.where((active & ~out_next)[..., None], new_pts, pts)
         done = done | small | osc | out_next
         lost = lost | (active & out_next)
         prev_delta = delta
@@ -272,7 +291,12 @@ def lk_track_precomputed(prev: LKFrameInputs, nxt: LKFrameInputs,
                          min_eig_thresh: float = 1e-4) -> FlowResult:
     """LK tracking from precomputed single-frame inputs (``prev.stacks``
     and ``nxt.images``, see LKFrameInputs); ``shapes`` comes from
-    ``level_geometry``."""
+    ``level_geometry``.
+
+    With a leading stream axis on every input (stacks (S, 3, Hp, Wp),
+    images (S, Hp, Wp), ``pts`` (S, N, 2), ``valid`` (S, N)) it tracks the
+    S streams' points in one Newton loop per level, and the result carries
+    the stream axis too."""
     dtype = prev.stacks[0].dtype
     eps2 = min(max(eps, 0.0), 10.0) ** 2      # cv2 clamps, then squares
 

@@ -26,21 +26,24 @@ import torch
 
 
 def masked_cov2(xy: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """np.cov (rowvar per-coordinate, ddof=1) of masked (N, 2) samples."""
+    """np.cov (rowvar per-coordinate, ddof=1) of masked (..., N, 2)
+    samples: (..., 2, 2)."""
     w = mask.to(xy.dtype)
-    n = w.sum()
-    mean = (xy * w[:, None]).sum(dim=0) / torch.clamp(n, min=1.0)
-    d = (xy - mean) * w[:, None]
-    return torch.matmul(d.T, d) / torch.clamp(n - 1.0, min=1.0)
+    n = w.sum(dim=-1)
+    mean = (xy * w[..., None]).sum(dim=-2) / torch.clamp(n, min=1.0)[..., None]
+    d = (xy - mean[..., None, :]) * w[..., None]
+    return torch.matmul(d.mT, d) / torch.clamp(n - 1.0, min=1.0)[..., None,
+                                                                  None]
 
 
 def eigh2_desc(cov: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric 2x2 eigendecomposition, eigenvalues descending.
+    """Symmetric 2x2 eigendecomposition of (..., 2, 2) matrices,
+    eigenvalues descending.
 
-    Returns (vals (2,), vecs (2,2) with eigenvectors as columns), each
-    column's largest-|.| component made positive.
+    Returns (vals (..., 2), vecs (..., 2, 2) with eigenvectors as
+    columns), each column's largest-|.| component made positive.
     """
-    a, b, c = cov[0, 0], cov[0, 1], cov[1, 1]
+    a, b, c = cov[..., 0, 0], cov[..., 0, 1], cov[..., 1, 1]
     half_tr = 0.5 * (a + c)
     disc = torch.sqrt(0.25 * (a - c) ** 2 + b * b)
     lam1 = half_tr + disc
@@ -51,18 +54,21 @@ def eigh2_desc(cov: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     def unit_vec(lam):
         # [b, lam-a] is an eigenvector when b != 0; fall back to the axis
         # basis for (near-)diagonal matrices.
-        v = torch.stack([b, lam - a])
-        nrm = torch.sqrt((v * v).sum())
+        v = torch.stack([b, lam - a], dim=-1)
+        nrm = torch.sqrt((v * v).sum(dim=-1))
         diag_vec = torch.where(
-            (lam - a) * (lam - a) <= (lam - c) * (lam - c), e_x, e_y)
-        v = torch.where(nrm > 1e-30 * (a.abs() + c.abs() + 1e-300),
-                        v / torch.clamp(nrm, min=1e-300), diag_vec)
+            ((lam - a) * (lam - a) <= (lam - c) * (lam - c))[..., None],
+            e_x, e_y)
+        v = torch.where(
+            (nrm > 1e-30 * (a.abs() + c.abs() + 1e-300))[..., None],
+            v / torch.clamp(nrm, min=1e-300)[..., None], diag_vec)
         # Deterministic sign: largest-|.| component positive.
-        pick = torch.where(v[0].abs() >= v[1].abs(), v[0], v[1])
-        return torch.where(pick < 0, -v, v)
+        pick = torch.where(v[..., 0].abs() >= v[..., 1].abs(), v[..., 0],
+                           v[..., 1])
+        return torch.where((pick < 0)[..., None], -v, v)
 
-    vals = torch.stack([lam1, lam2])
-    vecs = torch.stack([unit_vec(lam1), unit_vec(lam2)], dim=1)
+    vals = torch.stack([lam1, lam2], dim=-1)
+    vecs = torch.stack([unit_vec(lam1), unit_vec(lam2)], dim=-1)
     return vals, vecs
 
 
@@ -72,10 +78,11 @@ def pca_project_last(motion_xy: torch.Tensor,
     the masked motion buffer, first-eigenvector row-quirk projection of the
     *newest* sample.
 
-    motion_xy: (N, 2) right-aligned ring buffer; mask: validity.  Returns
-    the projected value of the last (newest) sample.
+    motion_xy: (..., N, 2) right-aligned ring buffers (a leading stream
+    axis for the fleet); mask: validity.  Returns the projected value of
+    each ring's last (newest) sample.
     """
     cov = masked_cov2(motion_xy, mask)
     _, vecs = eigh2_desc(cov)
-    evec1_row = vecs[0, :]   # row 0 of the column-sorted matrix (the quirk)
-    return (motion_xy[-1] * evec1_row).sum()
+    evec1_row = vecs[..., 0, :]   # row 0 of the column-sorted matrix (quirk)
+    return (motion_xy[..., -1, :] * evec1_row).sum(dim=-1)

@@ -1,0 +1,502 @@
+"""Multi-stream (multi-kennel) monitoring: S streams in lockstep on one card.
+
+Port of ``respmon_tpu/parallel/streams.py`` without its sharded functions
+(``make_sharded_*``, ``shard_streams``).  BASELINE.md config 5: 64
+concurrent 1080p streams.  Each stream is an independent monitor (its own
+ROI and signal state).  Where the JAX package ``vmap``s the single-stream
+pipeline over a leading stream axis, the port carries that axis on every
+tensor of the fleet step: one ``MultiStreamMonitor.step`` runs the same
+operations (and, given the same loop counts, the same launches) whether S
+is 2 or 64.  All streams share one crop bucket (the largest ROI, rounded up
+to ``roi_bucket``).
+
+The port loops over streams in three places, each where one stream's work
+fills the card or runs rarely: ``locate_streams`` (one ``locate`` per
+stream: a 64 x 128 x 1080p buffer is 68 GB as float32),
+``measure_clip_streams`` (an offline path) and the connected-component
+search of the streaming localize (``streaming.localize_batch``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from respmon_tpu_torch import device as device_mod
+from respmon_tpu_torch.config import MonitorConfig
+from respmon_tpu_torch.ops import filters
+from respmon_tpu_torch.ops.dtype import ingest_frames
+from respmon_tpu_torch.pipeline import bpm as bpm_mod
+from respmon_tpu_torch.pipeline import evm, motion, scan, streaming
+
+logger = logging.getLogger(__name__)
+
+
+class BatchedLocate(NamedTuple):
+    found: torch.Tensor   # (S,) bool
+    boxes: torch.Tensor   # (S, 4) int32 x,y,w,h
+
+
+def locate_streams(buffers: torch.Tensor, fps: float, cfg) -> BatchedLocate:
+    """EVM calibration of (S, T, H, W) buffers, one ``evm.locate`` per
+    stream (each fills the card; their inputs together need not fit)."""
+    found, boxes = [], []
+    for buf in buffers:
+        r = evm.locate(buf, fps, cfg)
+        found.append(r.found)
+        boxes.append(torch.stack([r.x, r.y, r.w, r.h]))
+    return BatchedLocate(found=torch.stack(found),
+                         boxes=torch.stack(boxes).to(torch.int32))
+
+
+def _stack_tree(items):
+    """Stack a list of equal NamedTuples (or tensors) field by field."""
+    first = items[0]
+    if isinstance(first, tuple):
+        return type(first)(*(_stack_tree(list(f)) for f in zip(*items)))
+    return torch.stack(items)
+
+
+def measure_clip_streams(frames: torch.Tensor, rois,
+                         spec: motion.MeasureSpec,
+                         coeffs: filters.FilterCoeffs, min_dist: int, cfg,
+                         estimate_every_frame: bool = True
+                         ) -> scan.ClipMeasureResult:
+    """Whole-clip measurement of (S, T, H, W) clips at (S, 4) ROIs, one
+    ``scan.measure_clip`` per stream (an offline path); every field of the
+    result gets a leading stream axis."""
+    return _stack_tree([
+        scan.measure_clip(f, [int(v) for v in r], spec, coeffs, min_dist,
+                          cfg, estimate_every_frame)
+        for f, r in zip(frames, np.asarray(rois))])
+
+
+class StreamStepResult(NamedTuple):
+    state: motion.MeasureState     # batched (S, ...)
+    samples: torch.Tensor          # (S,)
+    bpm: torch.Tensor              # (S,)
+    has_bpm: torch.Tensor          # (S,) bool
+    error: torch.Tensor            # (S,) bool
+
+
+def _estimate(states: motion.MeasureState, samples, coeffs, min_dist,
+              cfg) -> StreamStepResult:
+    res = bpm_mod.estimate_bpm(states.data, states.t, states.count, coeffs,
+                               min_dist, cfg)
+    ran = states.count > cfg.initialization_length
+    return StreamStepResult(state=states, samples=samples, bpm=res.bpm,
+                            has_bpm=res.has_bpm & ran, error=states.error)
+
+
+def monitor_step_streams(states: motion.MeasureState, frames: torch.Tensor,
+                         spec: motion.MeasureSpec,
+                         coeffs: filters.FilterCoeffs, min_dist: int,
+                         cfg, initialized: bool = False) -> StreamStepResult:
+    """One live monitoring step for S streams at once: the batched motion
+    step, then the BPM estimate of all S rings.  ``initialized=True``
+    skips the first-frame corner detection (see
+    ``motion.measure_step_batch``)."""
+    states, samples = motion.measure_step_batch(states, frames, spec,
+                                                initialized)
+    return _estimate(states, samples, coeffs, min_dist, cfg)
+
+
+def monitor_step_streams_cached(states, cache, frames, spec, coeffs,
+                                min_dist, cfg, initialized: bool = False,
+                                cache_valid: bool = True):
+    """``monitor_step_streams`` with the carried prev-frame LK cache
+    (``motion.FlowCache``): one pyramid build a step instead of two, bit
+    for bit the same results.  Returns (result, new cache)."""
+    states, cache, samples = motion.measure_step_cached(
+        states, cache, frames, spec, initialized, cache_valid)
+    return _estimate(states, samples, coeffs, min_dist, cfg), cache
+
+
+def init_fleet_cache(spec: motion.MeasureSpec, n_streams: int,
+                     dtype=torch.float32, device=None) -> motion.FlowCache:
+    """Zero-filled batched (S, ...) cache placeholder for the
+    ``cache_valid=False`` rebuild step."""
+    base = motion.init_flow_cache(spec, dtype, device)
+    return motion.FlowCache(stacks=tuple(
+        s.expand((n_streams,) + tuple(s.shape)).clone() for s in base.stacks))
+
+
+class StreamBatchResult(NamedTuple):
+    state: motion.MeasureState     # final batched (S, ...) state
+    samples: torch.Tensor          # (K, S)
+    bpm: torch.Tensor              # (K, S)
+    has_bpm: torch.Tensor          # (K, S) bool
+    error: torch.Tensor            # (K, S) bool
+
+
+def monitor_scan_streams(states, frames, spec, coeffs, min_dist, cfg,
+                         initialized: bool = False) -> StreamBatchResult:
+    """K lockstep steps over a (K, S, H, W) frame batch; per-frame outputs
+    come back stacked (K, S)."""
+    outs = []
+    for fr in frames:
+        r = monitor_step_streams(states, fr, spec, coeffs, min_dist, cfg,
+                                 initialized)
+        states = r.state
+        outs.append((r.samples, r.bpm, r.has_bpm, r.error))
+    samples, bpm, has, err = (torch.stack(x) for x in zip(*outs))
+    return StreamBatchResult(state=states, samples=samples, bpm=bpm,
+                             has_bpm=has, error=err)
+
+
+def fleet_lk_sample(cfg: MonitorConfig, crop_h: int, crop_w: int,
+                    n_streams: int) -> str:
+    """The fleet's LK next-window sampling mode: ``"slices"``, the one the
+    port has (the JAX package picks it too off a TPU; its ``"onehot"`` is
+    a TPU gather strategy, bit-identical to it).  The port's flow step
+    always takes the carried LK cache, as the JAX fleet does with this
+    mode."""
+    del cfg, crop_h, crop_w, n_streams
+    return "slices"
+
+
+def fleet_lk_prev_sample(cfg: MonitorConfig) -> str:
+    """The fleet's LK prev-window sampling mode: ``"slices"``, as the JAX
+    package picks off a TPU or with ``cfg.fleet_exact_lk``."""
+    del cfg
+    return "slices"
+
+
+# ---------------------------------------------------------------------------
+# Fleet streaming-ROI re-lock: the single monitor's streaming step at fleet
+# scale.  Rolling pyramid rings are batched (S, T, h, w) per kept level;
+# every fleet step absorbs all S frames with one K1 call, the localize half
+# runs every streaming_interval frames (by default with the coarse collapse,
+# at level skip_levels_at_top: the granularity a drift detector needs), and
+# drifted streams re-lock through motion.relock_state_batch: tracked points
+# and signal rings survive, so a moving subject never meets the
+# error -> recalibrate stall.
+# ---------------------------------------------------------------------------
+
+
+def init_fleet_streaming(frame_hw: Tuple[int, int], cfg, n_streams: int,
+                         dtype=torch.float32,
+                         device=None) -> streaming.StreamingState:
+    """Zero-filled batched streaming rings for S streams."""
+    base = streaming.init_streaming_state(frame_hw[0], frame_hw[1], cfg,
+                                          dtype, device)
+    return streaming.StreamingState(
+        levels=tuple(lv.expand((n_streams,) + tuple(lv.shape)).clone()
+                     for lv in base.levels),
+        count=torch.zeros((n_streams,), dtype=torch.int32,
+                          device=base.count.device))
+
+
+def init_fleet_streaming_from_buffers(buffers: torch.Tensor, cfg):
+    """Warm-start batched rings from the (S, T, H, W) calibration buffers
+    (K1 over the flattened stack, in chunks; see
+    ``streaming.init_streaming_from_buffers_batch``)."""
+    return streaming.init_streaming_from_buffers_batch(buffers, cfg)
+
+
+def absorb_streams(sstate, frames: torch.Tensor, cfg):
+    """Absorb one (S, H, W) frame batch into the batched rings (one K1
+    call)."""
+    return streaming.streaming_absorb_batch(sstate, frames, cfg)
+
+
+def update_streams(sstate, frames: torch.Tensor, fps: float, cfg,
+                   coarse: bool = True):
+    """Absorb one (S, H, W) frame batch AND localize every stream over its
+    rolling window.  Returns (rings, per-stream ``StreamingLocate``)."""
+    new_state = streaming.streaming_absorb_batch(sstate, frames, cfg)
+    hw = tuple(frames.shape[-2:])
+    loc = streaming.localize_batch(new_state, hw, new_state.levels[0].dtype,
+                                   fps, cfg, coarse)
+    return new_state, loc
+
+
+def relock_streams(states: motion.MeasureState, frames: torch.Tensor,
+                   new_rois, apply, spec: motion.MeasureSpec
+                   ) -> motion.MeasureState:
+    """Batched masked re-lock: streams where ``apply`` holds move their
+    measurement window onto ``new_rois`` (``motion.relock_state_batch``:
+    tracked points move with the window, signal rings stay); the others
+    keep their state bit for bit."""
+    dev = states.data.device
+    apply = torch.as_tensor(apply, device=dev)
+    relocked = motion.relock_state_batch(states, frames, new_rois, spec)
+    return motion.where_streams(apply, relocked, states)
+
+
+def init_stream_states(spec: motion.MeasureSpec, rois,
+                       dtype=torch.float32,
+                       device=None) -> motion.MeasureState:
+    """Batched initial states from per-stream (S, 4) ROIs."""
+    rois = torch.as_tensor(np.asarray(rois), dtype=torch.int32)
+    base = motion.init_state(spec, (0, 0, 0, 0), dtype=dtype, device=device)
+    s = rois.shape[0]
+    batched = motion.MeasureState(*(
+        f.expand((s,) + tuple(f.shape)).clone() for f in base))
+    return batched._replace(roi=rois.to(base.roi.device))
+
+
+class MultiStreamMonitor:
+    """Fleet monitor: S concurrent streams on one card.
+
+    The multi-kennel deployment surface (BASELINE.md config 5): calibrate
+    all streams, then step frames in lockstep batches.  Per-stream error
+    flags surface so the host can recalibrate individual streams
+    (``recalibrate`` with a stream mask).  The signature is the JAX
+    package's, plus ``device`` (``None``: the card); ``mesh`` must be
+    ``None``, as the sharded fleet is not ported yet."""
+
+    def __init__(self, cfg: MonitorConfig, mesh,
+                 frame_hw: Tuple[int, int], fps: float,
+                 dtype=torch.float32, streaming_coarse: bool = True,
+                 device=None) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "the sharded fleet (a device mesh) is not ported yet "
+                "(ROADMAP.md queue 1 item 6); pass mesh=None")
+        self.cfg = cfg
+        self.mesh = None
+        self.device = device_mod.resolve(device)
+        self.frame_hw = tuple(frame_hw)
+        self.dtype = dtype
+        self.spec: Optional[motion.MeasureSpec] = None
+        self._states: Optional[motion.MeasureState] = None
+        # Streaming-ROI re-lock (cfg.streaming_roi): batched rolling rings
+        # and the per-stream drift re-lock.  ``streaming_coarse`` keeps the
+        # per-interval localize at level skip_levels_at_top (the fleet
+        # default; False gives the single-stream monitor's full-resolution
+        # localize).
+        self.streaming_coarse = bool(streaming_coarse)
+        self._streaming = None
+        self._stream_tick = 0
+        self._rois: Optional[np.ndarray] = None   # host mirror (S, 4)
+        self.relocks = 0
+        # What ran K1, for a check of its launches: single-stream locates
+        # (calibrate, recalibrate), warm starts of the rings and absorbed
+        # (S, H, W) batches.
+        self.locates = 0
+        self.streaming_starts = 0
+        self.streaming_absorbed = 0
+        # Rows that repeat a stream's previous frame (a live FleetFeeder's
+        # ``stale`` mask, when passed to ``step``).  Their streams advance
+        # t by 1/fps all the same, as in the JAX package.
+        self.stale_rows = 0
+        # Unless cfg.fleet_f64_refine, the lockstep step runs without the
+        # f64 wild-fit refit: one persistent suspect lane would make every
+        # step pay the refit loop.
+        self.measure_cfg = cfg.measure
+        if not cfg.fleet_f64_refine and cfg.measure.f64_refine:
+            self.measure_cfg = dataclasses.replace(cfg.measure,
+                                                   f64_refine=False)
+        # Carried prev-frame LK stacks (motion.FlowCache, batched); None
+        # makes the next step rebuild them.  Any outside assignment to
+        # .states drops it (the property setter): the cache is consistent
+        # only with states that step() itself produced.
+        self._cache = None
+        # True until every stream has had its corner-detection step; the
+        # steady-state step (the common case) then skips corner detection.
+        self._needs_init = True
+        self._set_fps(fps)
+
+    @property
+    def states(self) -> Optional[motion.MeasureState]:
+        return self._states
+
+    @states.setter
+    def states(self, value) -> None:
+        self._states = value
+        self._cache = None
+
+    def _set_fps(self, fps: float) -> None:
+        """Install ``fps`` and what derives from it (the lowpass design
+        and the peak min-distance)."""
+        self.fps = float(fps)
+        cfg = self.cfg
+        self.coeffs = filters.design_butter_lowpass(
+            cfg.calibration.freq_max * 0.5, self.fps,
+            cfg.measure.filter_order)
+        self.min_dist = max(
+            int(np.floor(self.fps / cfg.calibration.freq_max)), 1)
+
+    def _ingest(self, frames) -> torch.Tensor:
+        return ingest_frames(frames, self.dtype, self.device)
+
+    def _locate(self, dev) -> BatchedLocate:
+        self.locates += dev.shape[0]
+        return locate_streams(dev, self.fps, self.cfg.calibration)
+
+    def _warm_start(self, dev):
+        self.streaming_starts += 1
+        return init_fleet_streaming_from_buffers(dev, self.cfg.calibration)
+
+    def calibrate(self, buffers) -> BatchedLocate:
+        """buffers: (S, T, H, W) float in [0, 1], or camera-native uint8
+        (widened on the device).  Sets up the batched measurement state."""
+        dev = self._ingest(buffers)
+        loc = self._locate(dev)
+        boxes = loc.boxes.cpu().numpy()
+        wmax = int(boxes[:, 2].max(initial=1))
+        hmax = int(boxes[:, 3].max(initial=1))
+        self.spec = motion.MeasureSpec.for_roi(
+            self.cfg, self.frame_hw[0], self.frame_hw[1], wmax, hmax,
+            self.fps)
+        self.states = init_stream_states(self.spec, boxes, self.dtype,
+                                         self.device)
+        self._needs_init = True
+        self._rois = boxes.astype(np.int32).copy()
+        if self.cfg.streaming_roi:
+            self._streaming = self._warm_start(dev)
+            self._stream_tick = 0
+        return loc
+
+    def recalibrate(self, buffers,
+                    stream_mask: Optional[np.ndarray] = None
+                    ) -> BatchedLocate:
+        """Recalibrate a subset of streams in place (the fleet analog of
+        the single monitor's error -> recalibrate cycle).
+
+        Streams where ``stream_mask`` is True (default: all) AND
+        calibration found an ROI get a fresh measurement state at the new
+        ROI; the others keep their state untouched.  New ROIs are clipped
+        to the fleet's crop bucket; if one exceeds it, call ``calibrate``
+        instead (which sizes the bucket anew).  When no stream is applied,
+        states and rings stay as they are (the JAX package rebuilds them
+        to the same values)."""
+        assert self.states is not None, "calibrate() first"
+        dev = self._ingest(buffers)
+        loc = self._locate(dev)
+        boxes = loc.boxes.cpu().numpy().copy()
+        clipped = (boxes[:, 2] > self.spec.crop_w) | \
+                  (boxes[:, 3] > self.spec.crop_h)
+        boxes[:, 2] = np.minimum(boxes[:, 2], self.spec.crop_w)
+        boxes[:, 3] = np.minimum(boxes[:, 3], self.spec.crop_h)
+        apply = loc.found.cpu().numpy()
+        if stream_mask is not None:
+            apply = apply & np.asarray(stream_mask)
+        if (clipped & apply).any():
+            logger.warning(
+                "recalibrate: ROI(s) for streams %s exceed the fleet crop "
+                "bucket (%dx%d) and were clipped; run calibrate() to "
+                "rebuild the fleet spec if this persists",
+                np.where(clipped & apply)[0].tolist(),
+                self.spec.crop_w, self.spec.crop_h)
+        installed = BatchedLocate(found=loc.found, boxes=torch.as_tensor(
+            boxes, dtype=torch.int32, device=loc.boxes.device))
+        if not apply.any():
+            return installed
+
+        fresh = init_stream_states(self.spec, boxes, self.dtype, self.device)
+        sel = torch.as_tensor(apply, device=self.device)
+        self.states = motion.where_streams(sel, fresh, self.states)
+        self._needs_init = True   # fresh streams detect corners anew
+        if self._rois is not None:
+            self._rois[apply] = boxes[apply].astype(np.int32)
+        if self.cfg.streaming_roi and self._streaming is not None:
+            # Recalibrated streams warm-start their rings from the fresh
+            # buffers; the others keep rolling.
+            fresh_rings = self._warm_start(dev)
+            self._streaming = motion.where_streams(sel, fresh_rings,
+                                                    self._streaming)
+        return installed
+
+    def step(self, frames, stale=None) -> StreamStepResult:
+        """frames: (S, H, W), one new frame per stream (``uint8`` frames
+        widen on the device).  ``stale`` (optional (S,) bool, a live
+        ``FleetFeeder`` batch's mask) only counts the rows that repeat a
+        stream's previous frame into ``stale_rows``: like the JAX package,
+        the step advances every stream's t all the same."""
+        assert self.states is not None, "calibrate() first"
+        dev = self._ingest(frames)
+        if stale is not None:
+            self.stale_rows += int(np.asarray(stale).sum())
+        initialized = not self._needs_init
+        if self.spec.method == "flow":
+            res, self._cache = monitor_step_streams_cached(
+                self._states, self._cache, dev, self.spec, self.coeffs,
+                self.min_dist, self.measure_cfg, initialized=initialized,
+                cache_valid=self._cache is not None)
+            self._states = res.state
+        else:
+            res = monitor_step_streams(self.states, dev, self.spec,
+                                       self.coeffs, self.min_dist,
+                                       self.measure_cfg,
+                                       initialized=initialized)
+            self.states = res.state
+        self._needs_init = False
+        self._streaming_step(dev)
+        return res
+
+    def _streaming_step(self, dev) -> None:
+        """The per-step half of the streaming-ROI mode: absorb this step's
+        (S, H, W) batch into the rings (one K1 call); every
+        ``streaming_interval`` steps localize every stream and re-lock the
+        drifted ones.  A no-op unless cfg.streaming_roi."""
+        if not self.cfg.streaming_roi or self._streaming is None:
+            return
+        self._stream_tick += 1
+        self.streaming_absorbed += 1
+        cal = self.cfg.calibration
+        if self._stream_tick % self.cfg.streaming_interval:
+            self._streaming = absorb_streams(self._streaming, dev, cal)
+            return
+        self._streaming, loc = update_streams(
+            self._streaming, dev, self.fps, cal,
+            coarse=self.streaming_coarse)
+        self._maybe_relock(loc, dev)
+
+    def _maybe_relock(self, loc, dev) -> None:
+        """The host's drift decision and the batched masked re-lock (one
+        small read of the per-stream boxes each localize interval).  Each
+        stream keeps its calibrated window SIZE, recentred on the
+        localized bbox and clipped to the frame, like the single-stream
+        monitor's re-lock."""
+        found, bx, by, bw, bh = torch.stack(
+            [loc.found.to(torch.int64), loc.x.to(torch.int64),
+             loc.y.to(torch.int64), loc.w.to(torch.int64),
+             loc.h.to(torch.int64)]).cpu().numpy()
+        found = found.astype(bool)
+        if not found.any():
+            return
+        cur = self._rois
+        cx = bx + bw / 2.0
+        cy = by + bh / 2.0
+        drift = np.hypot(cx - (cur[:, 0] + cur[:, 2] / 2.0),
+                         cy - (cur[:, 1] + cur[:, 3] / 2.0))
+        apply = found & (drift >= self.cfg.streaming_drift_px)
+        if not apply.any():
+            return
+        h_f, w_f = self.frame_hw
+        w = cur[:, 2]
+        h = cur[:, 3]
+        x2 = np.clip(np.round(cx - w / 2.0), 0, w_f - w).astype(np.int32)
+        y2 = np.clip(np.round(cy - h / 2.0), 0, h_f - h).astype(np.int32)
+        apply &= (x2 != cur[:, 0]) | (y2 != cur[:, 1])
+        if not apply.any():
+            return
+        new_rois = np.stack([x2, y2, w, h], axis=1).astype(np.int32)
+        # The property setter also drops the carried LK cache (re-locked
+        # streams re-cropped prev from the current frame).
+        self.states = relock_streams(self._states, dev, new_rois, apply,
+                                     self.spec)
+        self._rois[apply] = new_rois[apply]
+        self.relocks += int(apply.sum())
+
+    def step_many(self, frames) -> StreamBatchResult:
+        """frames: (K, S, H, W): K lockstep frames per stream; per-frame
+        outputs come back stacked (K, S).  The streaming-ROI mode is
+        served by ``step`` only: this batch path does NOT absorb frames
+        into the rolling rings (a K-frame gap would break the bandpass's
+        contiguous window)."""
+        assert self.states is not None, "calibrate() first"
+        dev = self._ingest(frames)
+        initialized = not self._needs_init
+        res = monitor_scan_streams(self.states, dev, self.spec, self.coeffs,
+                                   self.min_dist, self.measure_cfg,
+                                   initialized=initialized)
+        self.states = res.state
+        self._needs_init = False
+        return res

@@ -10,7 +10,10 @@ largest component's bbox, so the monitor can follow a subject that moves.
 
 A state is a NamedTuple of tensors; every function returns a new one and
 changes nothing in place.  The ``*_batch`` functions and ``coarse=True``
-serve a fleet of streams (rings with a leading stream axis).
+serve a fleet of streams (rings with a leading stream axis).  A fleet
+localize (``localize_batch``) bandpasses each kept level of all S streams
+in one operator product and collapses them as one stack; only the
+connected-component search runs stream by stream.
 """
 
 from __future__ import annotations
@@ -21,10 +24,14 @@ import torch
 
 from respmon_tpu_torch import device as device_mod
 from respmon_tpu_torch.config import CalibrationConfig
-from respmon_tpu_torch.ops.dtype import uint8_to_float
+from respmon_tpu_torch.ops import ccl
+from respmon_tpu_torch.ops.dtype import float_to_uint8, uint8_to_float
 from respmon_tpu_torch.ops.fft_bandpass import temporal_bandpass_fft
 from respmon_tpu_torch.ops.pyramid import pyramid_shapes
 from respmon_tpu_torch.pipeline import evm
+
+# The most float32 frame bytes a fleet warm start sends through K1 at once.
+WARM_START_CHUNK_BYTES = 1 << 30
 
 
 class StreamingState(NamedTuple):
@@ -108,51 +115,90 @@ def streaming_absorb_batch(state: StreamingState, frames: torch.Tensor,
 
 
 def init_streaming_from_buffers_batch(buffers: torch.Tensor,
-                                      cfg: CalibrationConfig
+                                      cfg: CalibrationConfig,
+                                      chunk_bytes: int = WARM_START_CHUNK_BYTES
                                       ) -> StreamingState:
-    """Fleet warm start: (S, T', H, W) buffers to batched rings, with one
-    K1 call over the flattened (S*T, H, W) stack."""
+    """Fleet warm start: (S, T', H, W) buffers to batched rings, with K1
+    over the flattened (S*T, H, W) stack.  The stack goes through K1 in
+    chunks of at most ``chunk_bytes`` of float frames (64 streams of 128
+    1080p frames are 68 GB as float32); K1 works frame by frame, so the
+    chunks give the same bits as one call."""
     s = buffers.shape[0]
     t = cfg.buffer_length
-    buf = _float_frames(buffers[:, -t:])
-    flat = buf.reshape((s * t,) + tuple(buf.shape[2:])).contiguous()
-    band_lap = evm._band_laplacian_levels(flat, cfg)
+    h, w = buffers.shape[2:]
+    flat = buffers[:, -t:].reshape((s * t, h, w))
+    step = max(1, chunk_bytes // (4 * h * w))
+    parts = [evm._band_laplacian_levels(
+        _float_frames(flat[i:i + step]).contiguous(), cfg)
+        for i in range(0, s * t, step)]
     levels = tuple(
-        band_lap[i].reshape((s, t) + tuple(band_lap[i].shape[1:]))
+        torch.cat([p[i] for p in parts]).reshape(
+            (s, t) + tuple(parts[0][i].shape[1:]))
         for i in _kept_levels(cfg))
     return StreamingState(levels=levels, count=torch.full(
-        (s,), t, dtype=torch.int32, device=buf.device))
+        (s,), t, dtype=torch.int32, device=buffers.device))
+
+
+def localize_batch(state: StreamingState, frame_hw: Tuple[int, int],
+                   dtype, fps: float, cfg: CalibrationConfig,
+                   coarse: bool) -> StreamingLocate:
+    """The localize half of ``streaming_update`` for batched (S, T, h, w)
+    rings: bandpass the rings, collapse (to full resolution, or with
+    ``coarse`` to level ``skip_levels_at_top``), suppress-top, heatmap,
+    threshold, CCL bbox, each stream on its own.  Every field gets a
+    leading stream axis.
+
+    Each level's bandpass is one operator product over all S rings, and
+    the collapse one pyrUp chain over the (T*S) stack; the CCL (whose
+    sweeps read the device) runs stream by stream.  The bandpass is the
+    packed-rfft operator whatever ``cfg.temporal_filter`` says, as in the
+    JAX package."""
+    h0, w0 = frame_hw
+    s = state.count.shape[0]
+    t = cfg.buffer_length
+    shapes = pyramid_shapes(h0, w0, cfg.pyramid_levels)
+    # (T, S, h, w): time leads for the bandpass, and the collapse works
+    # on the (T*S) frames as one stack.
+    band = {lvl: temporal_bandpass_fft(
+        ring.transpose(0, 1), fps, cfg.freq_min, cfg.freq_max,
+        cfg.amplification).reshape((t * s,) + tuple(ring.shape[2:]))
+        for ring, lvl in zip(state.levels, _kept_levels(cfg))}
+    stop = cfg.skip_levels_at_top if coarse else 0
+    like = torch.empty((), dtype=dtype, device=state.count.device)
+    img = evm._collapse(band, shapes, t * s, like, stop)
+    img = img.reshape((t, s) + tuple(img.shape[1:]))
+    # Suppress-top (evm._suppress_top) per stream.
+    lo = img.amin(dim=(0, 2, 3), keepdim=True)
+    hi = img.amax(dim=(0, 2, 3), keepdim=True)
+    top = hi - (hi - lo) * cfg.temporal_threshold
+    avg = torch.where(img >= top, lo, img).mean(dim=0)
+    # The heatmap and threshold of evm._heat_and_box per stream.
+    amin = avg.amin(dim=(1, 2), keepdim=True)
+    amax = avg.amax(dim=(1, 2), keepdim=True)
+    heat = float_to_uint8((avg - amin) / (amax - amin))
+    fg = heat.to(torch.int32) > int(round(cfg.threshold * 255.0))
+    boxes = [ccl.largest_component_bbox(fg[i]) for i in range(s)]
+    bx, by, bw, bh, found = (torch.stack([getattr(b, f) for b in boxes])
+                             for f in ("x", "y", "w", "h", "found"))
+    if coarse:
+        k = 1 << stop
+        bx, by = bx * k, by * k
+        bw = torch.minimum(bw * k, w0 - bx)
+        bh = torch.minimum(bh * k, h0 - by)
+    ready = state.count >= cfg.buffer_length
+    return StreamingLocate(ready=ready, found=found & ready, x=bx, y=by,
+                           w=bw, h=bh, heatmap_u8=heat)
 
 
 def _localize_window(state: StreamingState, frame_hw: Tuple[int, int],
                      dtype, fps: float, cfg: CalibrationConfig,
                      coarse: bool) -> StreamingLocate:
-    """The localize half of ``streaming_update``: bandpass the rings,
-    collapse (to full resolution, or with ``coarse`` to level
-    ``skip_levels_at_top``), suppress-top, heatmap, threshold, CCL bbox.
-
-    The bandpass is the packed-rfft operator whatever
-    ``cfg.temporal_filter`` says, as in the JAX package."""
-    h0, w0 = frame_hw
-    shapes = pyramid_shapes(h0, w0, cfg.pyramid_levels)
-    band = {lvl: temporal_bandpass_fft(ring, fps, cfg.freq_min,
-                                       cfg.freq_max, cfg.amplification)
-            for ring, lvl in zip(state.levels, _kept_levels(cfg))}
-    stop = cfg.skip_levels_at_top if coarse else 0
-    like = torch.empty((), dtype=dtype, device=state.count.device)
-    img = evm._collapse(band, shapes, cfg.buffer_length, like, stop)
-    heat, _, box = evm._heat_and_box(evm._suppress_top(img, cfg).mean(dim=0),
-                                     cfg)
-    if coarse:
-        s = 1 << stop
-        bx, by = box.x * s, box.y * s
-        bw = torch.minimum(box.w * s, w0 - bx)
-        bh = torch.minimum(box.h * s, h0 - by)
-    else:
-        bx, by, bw, bh = box.x, box.y, box.w, box.h
-    ready = state.count >= cfg.buffer_length
-    return StreamingLocate(ready=ready, found=box.found & ready, x=bx, y=by,
-                           w=bw, h=bh, heatmap_u8=heat)
+    """The localize half of ``streaming_update``: ``localize_batch`` of
+    one stream's (T, h, w) rings."""
+    one = StreamingState(levels=tuple(lv[None] for lv in state.levels),
+                         count=state.count[None])
+    res = localize_batch(one, frame_hw, dtype, fps, cfg, coarse)
+    return StreamingLocate(*(f[0] for f in res))
 
 
 def streaming_update(state: StreamingState, frame, fps: float,

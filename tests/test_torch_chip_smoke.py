@@ -1,6 +1,6 @@
-"""Rehearsal of ``chip_smoke.py``'s monitor phases on the CPU: the phase
-functions at 120x160 with a 64-frame calibration, the port on the CPU, and
-CPU stand-ins for what only the card has (device synchronisation, the
+"""Rehearsal of ``chip_smoke.py``'s monitor and fleet phases on the CPU: the
+phase functions at 120x160 with a 64-frame calibration, the port on the CPU,
+and CPU stand-ins for what only the card has (device synchronisation, the
 kernels' launch counts).  On the card the script runs them at 640x480 with
 the default configuration."""
 
@@ -223,6 +223,74 @@ def test_main_prints_each_phase_seconds_within_the_budget():
     src = inspect.getsource(chip_smoke.main)
     for phase in ("phase_streaming_kernels", "phase_streaming",
                   "phase_monitor_streaming", "phase_monitor_warm_recovery",
-                  "phase_iir_locate", "phase_monitor_recovery"):
+                  "phase_iir_locate", "phase_monitor_recovery",
+                  "phase_fleet", "phase_fleet_feeder",
+                  "phase_fleet_cross_check", "phase_fleet_streaming",
+                  "phase_fleet_1080p", "phase_fleet_kernels"):
         assert f"timed({phase}" in src
     assert '"phase_seconds"' in src and chip_smoke.TIME_BUDGET_S == 900
+
+
+# -- the fleet phases ---------------------------------------------------------
+
+# The fleet at 120x160: 4 streams on the 120x160 flow fixture's patch, at
+# rates whose periods fit a 70-frame measurement.
+FLEET_SMALL = dict(height=120, width=160, centres=((60, 80),) * 4,
+                   bpms=(18.0, 20.0, 18.0, 20.0), patch_size=(30, 40))
+FLEET_CFG = MonitorConfig(motion_extraction_method="flow",
+                          calibration=CFG.calibration)
+
+
+def test_fleet_and_feeder_phases_rehearse_on_the_cpu(planned_launches):
+    lines = planned_launches
+    clips = chip_smoke.fleet_clips(1 + 64 + 1 + 70, **FLEET_SMALL)
+    launches, rows, boxes = chip_smoke.phase_fleet(
+        clips, FLEET_CFG, "cpu", FLEET_SMALL["bpms"])
+    row = lines[-1]
+    assert row["phase"] == "fleet_640x480_flow" and row["locates"] == 4
+    # One K1 call per stream's locate (B alone at 120x160), none per step.
+    assert launches["pyr_tail"] == 4
+    assert rows.shape == (70, 4, 4) and row["step_ms"]["n"] == 70
+    assert row["split_ms"]["motion_step"]["n"] == 70
+    assert min(row["bpm_count"]) >= 1
+
+    chip_smoke.phase_fleet_feeder(clips, rows, boxes, FLEET_CFG, "cpu",
+                                  ticks=3, live_ticks=2)
+    fed = lines[-1]
+    assert fed["phase"] == "fleet_feeder_640x480"
+    assert fed["native_collects"] >= 2 and fed["live_stale_rows"] >= 0
+
+    chip_smoke.phase_fleet_cross_check("cpu", steps=2)
+    cross = lines[-1]
+    assert cross["average"]["bpm_gap"] == 0.0
+    assert cross["flow"]["rois"] == cross["average"]["rois"]
+
+
+def test_fleet_streaming_and_1080p_phases_rehearse_on_the_cpu(
+        planned_launches):
+    lines = planned_launches
+    drifts = ((10.0, 20.0), (10.0, -20.0), (-10.0, 20.0), (-10.0, -20.0))
+    clips = chip_smoke.fleet_clips(1 + 64 + 1 + 24, drifts, **FLEET_SMALL)
+    launches = chip_smoke.phase_fleet_streaming(
+        clips, MonitorConfig(calibration=CFG.calibration), "cpu",
+        FLEET_SMALL["centres"], drifts)
+    for method in ("average", "flow"):
+        row = {line["phase"]: line for line in lines}[
+            f"fleet_streaming_640x480_{method}"]
+        # K1: 4 locates, one warm start (one chunk), one absorb a step.
+        assert launches[method]["pyr_tail"] == 4 + 1 + 24
+        assert row["streaming_absorbed"] == 24 and row["relocks"] >= 4
+        assert row["split_ms"]["absorb"]["n"] == 24
+        assert row["split_ms"]["localize"]["n"] == 24 // 8
+
+    launches = chip_smoke.phase_fleet_1080p(
+        [60, 45, 40, 30], "cpu", 3, (120, 160),
+        MonitorConfig(calibration=CFG.calibration))
+    row = lines[-1]
+    assert row["phase"] == "fleet_1080p_flow"
+    # Seven steps with an absorb and one with the coarse update.
+    assert launches["pyr_tail"] == 8
+    assert len(row["streaming"]["absorb_step_ms"]) == 7
+    assert row["streaming"]["split_ms"]["localize"]["n"] == 1
+    assert len(row["f64_refine"]["step_ms"]) == 3
+    assert row["k1_absorb_max_abs_err"] == 0.0

@@ -22,6 +22,7 @@ from respmon_tpu_torch import device as tdevice
 from respmon_tpu_torch import interop
 from respmon_tpu_torch.io import synthetic as tsyn
 from respmon_tpu_torch.ops import dtype as tdtype
+from respmon_tpu_torch.parallel import streams as tstreams
 from respmon_tpu_torch.pipeline import motion as tmotion
 from respmon_tpu_torch.pipeline import scan as tscan
 from respmon_tpu_torch.utils.bbox import reduce_bounding_box as treduce
@@ -138,6 +139,9 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     assert len(paths) > 20
     assert os.path.join(REPO, "respmon_tpu_torch", "pipeline",
                         "streaming.py") in paths
+    for part in (("parallel", "streams.py"), ("parallel", "__init__.py"),
+                 ("runtime", "fleet_feeder.py")):
+        assert os.path.join(REPO, "respmon_tpu_torch", *part) in paths
     for path in paths:
         with open(path) as fh:
             hit = pattern.search(fh.read())
@@ -150,6 +154,8 @@ def test_importing_every_port_module_loads_neither_jax_nor_the_jax_package():
                                               "respmon_tpu_torch.")]
     assert "respmon_tpu_torch.ops.lk" in names
     assert "respmon_tpu_torch.pipeline.streaming" in names
+    assert "respmon_tpu_torch.parallel.streams" in names
+    assert "respmon_tpu_torch.runtime.fleet_feeder" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r} + ['chip_smoke']:\n"
@@ -202,6 +208,15 @@ def _no_card_calls():
         "measure_state_from_numpy": lambda: interop.measure_state_from_numpy(
             interop.measure_state_to_numpy(
                 tmotion.init_state(spec, (0, 0, 16, 12), device="cpu"))),
+        "multi_stream_monitor": lambda: tstreams.MultiStreamMonitor(
+            SMALL_CFG, None, (48, 64), 10.0),
+        "init_stream_states": lambda: tstreams.init_stream_states(
+            spec, [(0, 0, 16, 12)] * 2),
+        "init_fleet_streaming": lambda: tstreams.init_fleet_streaming(
+            (48, 64), SMALL_CFG.calibration, 2),
+        "flow_cache_from_numpy": lambda: interop.flow_cache_from_numpy(
+            interop.flow_cache_to_numpy(
+                tmotion.init_flow_cache(spec, device="cpu"))),
     }
 
 

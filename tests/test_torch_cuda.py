@@ -348,3 +348,81 @@ def test_streaming_monitor_card_matches_cpu(dev):
     assert card.relocks >= 1
     np.testing.assert_allclose(np.asarray(card.freq), np.asarray(cpu.freq),
                                rtol=1e-5)
+
+
+# -- the multi-stream fleet --------------------------------------------------
+
+def _fleet_clips(n, s=3, method="average"):
+    flow = method == "flow"
+    return np.stack([breathing_clip(
+        num_frames=n, height=60, width=80, fps=10.0, bpm=18.0,
+        patch_center=(30, 40), patch_size=(16, 20), amplitude=0.25,
+        noise=0.002, motion_px=1.5 if flow else 0.0, texture_motion=flow,
+        seed=i) for i in range(s)])
+
+
+@pytest.mark.parametrize("method", ["average", "flow"])
+def test_fleet_card_matches_cpu(dev, method):
+    # The fleet's calibration and steps on the card against the CPU: the
+    # same boxes and error flags; samples to 1e-5 in average mode, to 1e-3
+    # over these few float32 flow steps.
+    from respmon_tpu_torch.parallel import streams
+
+    cfg = MonitorConfig(motion_extraction_method=method,
+                        calibration=CalibrationConfig(
+                            buffer_length=32, pyramid_levels=4,
+                            skip_levels_at_top=1))
+    clips = _fleet_clips(40, method=method)
+    mons = [streams.MultiStreamMonitor(cfg, None, (60, 80), 10.0,
+                                       device=d) for d in (None, "cpu")]
+    boxes = [m.calibrate(clips[:, :32]).boxes.cpu() for m in mons]
+    assert mons[0].device.type == "cuda" and torch.equal(*boxes)
+    for f in range(33, 40):
+        a, b = (m.step(clips[:, f]) for m in mons)
+        assert torch.equal(a.error.cpu(), b.error)
+        tol = 1e-5 if method == "average" else 1e-3
+        np.testing.assert_allclose(a.samples.cpu().numpy(),
+                                   b.samples.numpy(), rtol=0, atol=tol)
+
+
+def test_fleet_absorb_and_warm_start_launch_k1_and_equal_plain(dev):
+    # K1 at (S, H, W) (one absorb) and at (S * T, H, W) (the warm start)
+    # launches its plan once per call and equals the plain pyramid.
+    from respmon_tpu_torch.pipeline import streaming
+
+    cal = CalibrationConfig()
+    clips = torch.from_numpy(np.stack([
+        breathing_clip(num_frames=129, height=480, width=640, seed=i)
+        for i in range(2)])).to(dev)
+    pyramid_cuda.reset_launches()
+    rings = streaming.init_streaming_from_buffers_batch(clips[:, :128], cal)
+    rings = streaming.streaming_absorb_batch(rings, clips[:, 128], cal)
+    assert pyramid_cuda.LAUNCHES["pyr_tail"] == 2
+    assert pyramid_cuda.LAUNCHES["pyr_down_levels_d2"] == 2
+    saved = pyramid_cuda.laplacian_band_levels
+    pyramid_cuda.laplacian_band_levels = \
+        pyramid_cuda.laplacian_band_levels_ref
+    try:
+        ref = streaming.init_streaming_from_buffers_batch(clips[:, :128],
+                                                          cal)
+        ref = streaming.streaming_absorb_batch(ref, clips[:, 128], cal)
+    finally:
+        pyramid_cuda.laplacian_band_levels = saved
+    assert all(torch.equal(a, b) for a, b in zip(rings.levels, ref.levels))
+
+
+def test_batched_corners_equal_per_image_on_the_card(dev):
+    from respmon_tpu_torch.ops import corners
+
+    rng = np.random.default_rng(5)
+    imgs = torch.from_numpy(np.trunc(rng.random((3, 48, 64)) * 255.0)
+                            .astype(np.float32)).to(dev)
+    mask = torch.zeros((3, 48, 64), dtype=torch.bool, device=dev)
+    mask[0, 4:40, 6:60] = True
+    mask[1, 10:48, 0:50] = True
+    mask[2] = True
+    got = corners.good_features_to_track_batch(imgs, roi_mask=mask)
+    for i in range(3):
+        one = corners.good_features_to_track(imgs[i], roi_mask=mask[i])
+        assert torch.equal(got.valid[i], one.valid)
+        assert torch.equal(got.pts[i], one.pts)
