@@ -2352,10 +2352,10 @@ def main() -> int:
     host_frames = frames.cpu().numpy()
     del frames
     # The live monitor over the clip's first MONITOR_FRAMES frames (96
-    # measured), and the fed one over its first 30.
+    # measured), and the fed one over its first 60.
     monitor_launches, average_mon = timed(phase_monitor,
                                           host_frames[:MONITOR_FRAMES])
-    timed(phase_feeder, host_frames, average_mon, measured=30)
+    timed(phase_feeder, host_frames, average_mon)
     del host_frames
     streaming_launches = timed(phase_streaming, dev)
     stream_monitor_launches = timed(phase_monitor_streaming,
