@@ -752,9 +752,9 @@ def slice_frames(dev):
     return torch.from_numpy(quantize(_fixture(cal_len + 1 + 128))).to(dev)
 
 
-# The live monitor's clip: frame 0, 128 calibration frames, 1 dropped, 96
+# The live monitor's clip: frame 0, 128 calibration frames, 1 dropped, 80
 # measured.
-MONITOR_FRAMES = 1 + 128 + 1 + 96
+MONITOR_FRAMES = 1 + 128 + 1 + 80
 # The flow profiler pass's clip: 48 measured frames.
 PROFILE_FRAMES = 1 + 128 + 1 + 48
 
@@ -1911,7 +1911,7 @@ def _full_rings(mon, s, n, device, seed=0):
         count=full, motion_count=full)
 
 
-def phase_fleet_cross_check(device=None, steps=4):
+def phase_fleet_cross_check(device=None, steps=2):
     """A small fleet (3 streams at 120x160) on the card against the CPU,
     after the same calibration and with the same full rings installed: in
     average mode equal ROIs and has_bpm and BPM within rtol 1e-5, in
@@ -2152,15 +2152,17 @@ def phase_fleet_1080p(roi, device=None, streams_n=FLEET_1080P_STREAMS,
         f64_steps = [steps(mon64, 1, True, i) for i in range(3)]
     lm64 = split64.report()
 
-    # Streaming ROI: 7 steps with an absorb, then one with a coarse update.
-    mons = fleet(dataclasses.replace(cfg, streaming_roi=True))
+    # Streaming ROI every 4 steps: 3 steps with an absorb, then one with a
+    # coarse update.
+    mons = fleet(dataclasses.replace(cfg, streaming_roi=True,
+                                     streaming_interval=4))
     mons.states, mons._needs_init = mon.states, False
     mons._streaming = streams.init_fleet_streaming(
         (h_f, w_f), cfg.calibration, s, device=device)
     reset_launches()
     with split_timer(fleet=True) as splits:
         stream_steps = [steps(mons, 1, True, i)
-                        for i in range(cfg.streaming_interval)]
+                        for i in range(mons.cfg.streaming_interval)]
     launches = read_launches()
     check_k1_fleet(launches, mons, "the 64 x 1080p streaming fleet")
     ring0 = streams.init_fleet_streaming((h_f, w_f), cfg.calibration, s,
@@ -2351,7 +2353,7 @@ def main() -> int:
     timed(phase_flow_profile, frames[:PROFILE_FRAMES])
     host_frames = frames.cpu().numpy()
     del frames
-    # The live monitor over the clip's first MONITOR_FRAMES frames (96
+    # The live monitor over the clip's first MONITOR_FRAMES frames (80
     # measured), and the fed one over its first 60.
     monitor_launches, average_mon = timed(phase_monitor,
                                           host_frames[:MONITOR_FRAMES])

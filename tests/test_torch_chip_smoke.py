@@ -288,9 +288,9 @@ def test_fleet_streaming_and_1080p_phases_rehearse_on_the_cpu(
         MonitorConfig(calibration=CFG.calibration))
     row = lines[-1]
     assert row["phase"] == "fleet_1080p_flow"
-    # Seven steps with an absorb and one with the coarse update.
-    assert launches["pyr_tail"] == 8
-    assert len(row["streaming"]["absorb_step_ms"]) == 7
+    # Three steps with an absorb and one with the coarse update.
+    assert launches["pyr_tail"] == 4
+    assert len(row["streaming"]["absorb_step_ms"]) == 3
     assert row["streaming"]["split_ms"]["localize"]["n"] == 1
     assert len(row["f64_refine"]["step_ms"]) == 3
     assert row["k1_absorb_max_abs_err"] == 0.0
