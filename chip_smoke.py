@@ -1917,8 +1917,6 @@ def phase_fleet_cross_check(device=None, steps=2):
     average mode equal ROIs and has_bpm and BPM within rtol 1e-5, in
     float32 flow mode equal ROIs and BPM within 1 (float32 tracking
     drifts between the two, ROADMAP.md queue 3)."""
-    import dataclasses
-
     import numpy as np
 
     from respmon_tpu_torch.config import CalibrationConfig, MonitorConfig
