@@ -1752,14 +1752,15 @@ def phase_1080p(dev):
           "roi": _bbox(res), "launches": launches, "locate_s": locate_s,
           "plain_locate_s": plain_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return launches, roi
+    return launches, roi, frames
 
 
 # The fleet: 4 streams at 640x480, one breathing patch each at its own
 # centre (y, x) and rate; frame 0, 128 calibration frames, 1 dropped, then
 # FLEET_MEASURED measured.  Below 18 BPM two periods do not fit in so few
-# frames, and the estimate reads high (15 gave 17.1 after 96 on the card
-# and on the CPU alike).
+# frames and the estimate misses by more than 1: over 96 frames the JAX
+# fleet reads 14.3 for 12 BPM and 17.1 for 15 at stream 0, as the port does
+# on the CPU and on the card (tests/jax_fleet_fixture_bpm.py).
 FLEET_BPMS = (18.0, 21.0, 24.0, 27.0)
 FLEET_CENTRES = ((150, 190), (150, 450), (330, 190), (330, 450))
 FLEET_MEASURED = 80
@@ -2082,8 +2083,8 @@ def phase_fleet_streaming(clips, cfg=None, device=None,
     return launches
 
 
-def phase_fleet_1080p(roi, device=None, streams_n=FLEET_1080P_STREAMS,
-                      frame_hw=(1080, 1920), cfg=None):
+def phase_fleet_1080p(roi, buffer, device=None,
+                      streams_n=FLEET_1080P_STREAMS, cfg=None):
     """bench.py's main_multistream (bench.py:771-899) on the card: the
     1080p locate's box tiled over 64 streams, three u8 (64,1080,1920)
     batches rolled by 0, 1 and 2 px so LK does real work, full rings
@@ -2091,8 +2092,10 @@ def phase_fleet_1080p(roi, device=None, streams_n=FLEET_1080P_STREAMS,
     read at the end and over 3 with a read after every step, the float64
     refit tier over 3 steps (its LM steps counted), and in streaming-ROI mode
     the step with an absorb (K1 at (64,1080,1920), held to the plain
-    pyramid on one batch) and with a coarse update.  Returns the streaming
-    run's launches."""
+    pyramid on one batch) and with a coarse update, on rings warm-started
+    from ``buffer`` (the 1080p locate's u8 (128, 1080, 1920) clip) tiled
+    over the streams, so every ring is full and ready as a deployment's
+    are.  Returns the streaming run's launches."""
     import dataclasses
 
     import numpy as np
@@ -2104,7 +2107,7 @@ def phase_fleet_1080p(roi, device=None, streams_n=FLEET_1080P_STREAMS,
 
     cfg = dataclasses.replace(cfg or MonitorConfig(),
                               motion_extraction_method="flow")
-    h_f, w_f = frame_hw
+    h_f, w_f = buffer.shape[1:]
     s = streams_n
     dev = torch.device(device or "cuda")
     if dev.type == "cuda":
@@ -2149,14 +2152,23 @@ def phase_fleet_1080p(roi, device=None, streams_n=FLEET_1080P_STREAMS,
     with split_timer(fleet=True) as split64:
         f64_steps = [steps(mon64, 1, True, i) for i in range(3)]
     lm64 = split64.report()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 \
+        if dev.type == "cuda" else None
 
     # Streaming ROI every 4 steps: 3 steps with an absorb, then one with a
-    # coarse update.
+    # coarse update, on rings warm-started from the tiled calibration clip
+    # (K1 over the (64 * 128, 1080, 1920) stack in chunks).
     mons = fleet(dataclasses.replace(cfg, streaming_roi=True,
                                      streaming_interval=4))
     mons.states, mons._needs_init = mon.states, False
-    mons._streaming = streams.init_fleet_streaming(
-        (h_f, w_f), cfg.calibration, s, device=device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mons._streaming, warm_s = wall_s(
+        lambda: streams.init_fleet_streaming_from_buffers(
+            buffer[None].expand((s,) + tuple(buffer.shape)),
+            cfg.calibration))
+    check(bool((mons._streaming.count == cfg.calibration.buffer_length)
+               .all()), "the 64 x 1080p rings are full after the warm start")
     reset_launches()
     with split_timer(fleet=True) as splits:
         stream_steps = [steps(mons, 1, True, i)
@@ -2187,14 +2199,15 @@ def phase_fleet_1080p(roi, device=None, streams_n=FLEET_1080P_STREAMS,
                          "realtime_margin_at_10fps": (1.0 / FPS)
                          / statistics.median(f64_steps),
                          "split_ms": lm64},
-          "streaming": {"absorb_step_ms": [x * 1e3
+          "streaming": {"warm_start_s": warm_s,
+                        "absorb_step_ms": [x * 1e3
                                            for x in stream_steps[:-1]],
                         "update_step_ms": stream_steps[-1] * 1e3,
                         "relocks": mons.relocks, "launches": launches,
-                        "split_ms": rep},
-          "k1_absorb_max_abs_err": err,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
-          if dev.type == "cuda" else None})
+                        "split_ms": rep,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated()
+                        / 1e9 if dev.type == "cuda" else None},
+          "k1_absorb_max_abs_err": err, "peak_mem_gb": peak_gb})
     return launches
 
 
@@ -2365,7 +2378,7 @@ def main() -> int:
     warm_launches = timed(phase_monitor_warm_recovery, recovery,
                           cold_fault_to_bpm=cold_frames)
     del recovery
-    launches_1080p, roi_1080p = timed(phase_1080p, dev)
+    launches_1080p, roi_1080p, clip_1080p = timed(phase_1080p, dev)
     fleet = fleet_clips(1 + 128 + 1 + FLEET_MEASURED)
     fleet_launches, fleet_rows, fleet_boxes = timed(phase_fleet, fleet)
     timed(phase_fleet_feeder, fleet, fleet_rows, fleet_boxes)
@@ -2374,7 +2387,8 @@ def main() -> int:
     drifting = fleet_clips(1 + 128 + 1 + FLEET_STREAM_MEASURED, FLEET_DRIFTS)
     fleet_stream_launches = timed(phase_fleet_streaming, drifting)
     del drifting
-    fleet_1080p_launches = timed(phase_fleet_1080p, roi_1080p)
+    fleet_1080p_launches = timed(phase_fleet_1080p, roi_1080p, clip_1080p)
+    del clip_1080p
     kernels += timed(phase_fleet_kernels, dev)
 
     # Each path was driven with every count at 0 just before it and read

@@ -245,13 +245,14 @@ class FlowCache(NamedTuple):
     """The carried LK frame structures of each stream's PREVIOUS frame
     (the fleet fast path; respmon_tpu/pipeline/motion.py:260-275).
 
-    A flow step builds the pyramid, Scharr maps and padding of its frame
-    for the next-role images; the next step needs exactly those of the
-    same crop in the prev role, which ``measure_step_batch`` rebuilds from
-    ``state.prev_crop``.  Carrying the per-level padded (image, dx, dy)
-    stacks between steps saves one build a step, bit for bit: the stacks
-    are a function of the crop values ``prev_crop`` holds, and the
-    next-role images are channel 0 of the same stacks.
+    A flow step builds the pyramid and padding of its frame for the
+    next-role images; the next step needs that crop's pyramid, Scharr maps
+    and padding in the prev role, which ``measure_step_batch`` rebuilds
+    from ``state.prev_crop``.  The cached step builds its frame's per-level
+    padded (image, dx, dy) stacks once and carries them, which saves one
+    pyramid build a step, bit for bit: the stacks are a function of the
+    crop values ``prev_crop`` holds, and the next-role images are channel
+    0 of the same stacks.
     """
 
     stacks: Tuple[torch.Tensor, ...]   # per level (S, 3, Hp, Wp)
@@ -321,29 +322,38 @@ def _push_rows(rings: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
 
 
 def _flow_motion_batch(states: MeasureState, crop, mask, spec: MeasureSpec,
-                       initialized_hint: bool, u8_in: bool, prev_stacks):
+                       initialized_hint: bool, u8_in: bool, carry: bool,
+                       prev_stacks):
     """The flow branch of a batched step: LK from each stream's previous
     crop, whose structures are ``prev_stacks`` (a valid carried cache) or,
     when that is ``None``, built from ``state.prev_crop``; and unless
     ``initialized_hint``, the corner detection of the first frame, kept
     where a stream is not initialized yet (what JAX's vmapped ``cond``
-    computes).  Returns (samples, states, errors, the new cache).
+    computes).  With ``carry`` the new crop's full stacks are built and
+    returned as the next step's cache, else only its next-role images and
+    no cache.  Returns (samples, states, errors, the new cache or None).
     """
     crop_u8 = _u8_lattice(crop, mask, u8_in).to(states.prev_crop.dtype)
     win = spec.lk.win_size[0]
     max_level = spec.lk.max_level
     shapes = lk.level_geometry(spec.crop_h, spec.crop_w, max_level)
-    # One build serves both roles: channel 0 of each stack IS the padded
-    # next-role image, and the stacks are next step's prev.
-    new_cache = FlowCache(stacks=lk.precompute_frame_inputs(
-        crop_u8, win, max_level).stacks)
+    if carry:
+        # One build serves both roles: channel 0 of each stack IS the
+        # padded next-role image, and the stacks are next step's prev.
+        new_cache = FlowCache(stacks=lk.precompute_frame_inputs(
+            crop_u8, win, max_level).stacks)
+        images = tuple(st[:, 0] for st in new_cache.stacks)
+    else:
+        new_cache = None
+        images = lk.precompute_frame_inputs(
+            crop_u8, win, max_level, with_stacks=False,
+            with_images=True).images
     if prev_stacks is None:
         prev_stacks = lk.precompute_frame_inputs(states.prev_crop, win,
                                                  max_level).stacks
     fr = lk.lk_track_precomputed(
         lk.LKFrameInputs(stacks=prev_stacks),
-        lk.LKFrameInputs(stacks=(),
-                         images=tuple(st[:, 0] for st in new_cache.stacks)),
+        lk.LKFrameInputs(stacks=(), images=images),
         states.pts, states.pts_valid, shapes, win, max_level,
         spec.lk.max_iters, spec.lk.epsilon)
     sample, good, motion_xy, motion_count, lost = flow_update(
@@ -371,9 +381,10 @@ def _flow_motion_batch(states: MeasureState, crop, mask, spec: MeasureSpec,
 
 
 def _measure_batch(states: MeasureState, frames, spec: MeasureSpec,
-                   initialized_hint: bool, prev_stacks=None):
-    """The batched step; returns (states, the flow cache or None,
-    samples)."""
+                   initialized_hint: bool, carry: bool = False,
+                   prev_stacks=None):
+    """The batched step; returns (states, the flow cache when ``carry``
+    in flow mode, else None, samples)."""
     frames = torch.as_tensor(frames).to(states.data.device)
     crop, mask = _crop_batch(frames, states.roi, spec)
     u8_in = frames.dtype == torch.uint8
@@ -388,7 +399,8 @@ def _measure_batch(states: MeasureState, frames, spec: MeasureSpec,
         new, error = states, states.error
     else:
         sample, new, error, new_cache = _flow_motion_batch(
-            states, crop, mask, spec, initialized_hint, u8_in, prev_stacks)
+            states, crop, mask, spec, initialized_hint, u8_in, carry,
+            prev_stacks)
     t_next = torch.where(states.count == 0, 0.0,
                          states.t[:, -1] + 1.0 / spec.fps)
     new = new._replace(
@@ -431,7 +443,7 @@ def measure_step_cached(states: MeasureState, cache: Optional[FlowCache],
         new, sample = measure_step_batch(states, frames, spec,
                                          initialized_hint)
         return new, cache, sample
-    return _measure_batch(states, frames, spec, initialized_hint,
+    return _measure_batch(states, frames, spec, initialized_hint, True,
                           cache.stacks if cache_valid else None)
 
 

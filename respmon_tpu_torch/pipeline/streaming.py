@@ -115,19 +115,18 @@ def streaming_absorb_batch(state: StreamingState, frames: torch.Tensor,
 
 
 def init_streaming_from_buffers_batch(buffers: torch.Tensor,
-                                      cfg: CalibrationConfig,
-                                      chunk_bytes: int = WARM_START_CHUNK_BYTES
+                                      cfg: CalibrationConfig
                                       ) -> StreamingState:
     """Fleet warm start: (S, T', H, W) buffers to batched rings, with K1
     over the flattened (S*T, H, W) stack.  The stack goes through K1 in
-    chunks of at most ``chunk_bytes`` of float frames (64 streams of 128
-    1080p frames are 68 GB as float32); K1 works frame by frame, so the
-    chunks give the same bits as one call."""
+    chunks of at most ``WARM_START_CHUNK_BYTES`` of float frames (64
+    streams of 128 1080p frames are 68 GB as float32); K1 works frame by
+    frame, so the chunks give the same bits as one call."""
     s = buffers.shape[0]
     t = cfg.buffer_length
     h, w = buffers.shape[2:]
     flat = buffers[:, -t:].reshape((s * t, h, w))
-    step = max(1, chunk_bytes // (4 * h * w))
+    step = max(1, WARM_START_CHUNK_BYTES // (4 * h * w))
     parts = [evm._band_laplacian_levels(
         _float_frames(flat[i:i + step]).contiguous(), cfg)
         for i in range(0, s * t, step)]

@@ -283,11 +283,14 @@ def test_fleet_streaming_and_1080p_phases_rehearse_on_the_cpu(
         assert row["split_ms"]["absorb"]["n"] == 24
         assert row["split_ms"]["localize"]["n"] == 24 // 8
 
+    buffer = torch.from_numpy(_u8_clip(CFG.calibration.buffer_length))
     launches = chip_smoke.phase_fleet_1080p(
-        [60, 45, 40, 30], "cpu", 3, (120, 160),
+        [60, 45, 40, 30], buffer, "cpu", 3,
         MonitorConfig(calibration=CFG.calibration))
     row = lines[-1]
     assert row["phase"] == "fleet_1080p_flow"
+    # The streaming rings start full, warm-started from the tiled clip.
+    assert row["streaming"]["warm_start_s"] > 0.0
     # Three steps with an absorb and one with the coarse update.
     assert launches["pyr_tail"] == 4
     assert len(row["streaming"]["absorb_step_ms"]) == 3

@@ -161,7 +161,7 @@ def test_localize_batch_rows_equal_the_single_stream_localize(coarse):
             assert torch.equal(getattr(loc, f)[i], getattr(want, f)), (i, f)
 
 
-def test_fleet_warm_start_in_chunks_gives_the_same_rings():
+def test_fleet_warm_start_in_chunks_gives_the_same_rings(monkeypatch):
     # The flattened (S*T) stack goes through K1 in chunks; K1 works frame
     # by frame, so any chunking gives the bits of one call.
     cal = interop.config_from_reference(_cfg(16).calibration)
@@ -169,8 +169,9 @@ def test_fleet_warm_start_in_chunks_gives_the_same_rings():
     whole = tstreaming.init_streaming_from_buffers_batch(clips, cal)
     frame_bytes = 4 * H * W
     for chunk in (1, 5, 16):
-        part = tstreaming.init_streaming_from_buffers_batch(
-            clips, cal, chunk_bytes=chunk * frame_bytes)
+        monkeypatch.setattr(tstreaming, "WARM_START_CHUNK_BYTES",
+                            chunk * frame_bytes)
+        part = tstreaming.init_streaming_from_buffers_batch(clips, cal)
         assert torch.equal(part.count, whole.count)
         for a, b in zip(part.levels, whole.levels):
             assert torch.equal(a, b), chunk
