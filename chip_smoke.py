@@ -32,7 +32,13 @@ dimension): 4 streams of 640x480 in flow mode, calibrated and measured
 small fleet on the card against the CPU (``phase_fleet_cross_check``), 4
 drifting subjects in streaming-ROI mode (``phase_fleet_streaming``), the
 64 x 1080p deployment of bench.py's fleet bench (``phase_fleet_1080p``) and
-K1 at the fleet's shapes (``phase_fleet_kernels``).  Each phase prints one
+K1 at the fleet's shapes (``phase_fleet_kernels``).  Checkpoint / resume
+(``phase_checkpoint``): the 640x480 flow monitor and the 4 x 640x480 flow
+fleet saved mid-run and restored on the card go on bit for bit as the
+uninterrupted ones.  The sharded paths in a one-rank NCCL process group
+(``phase_sharded``): the T-sharded locate (K1 on its shard) and the
+W-sharded locate of the 640x480 buffer against ``locate``, and the
+stream-sharded fleet against the unsharded one.  Each phase prints one
 JSON line; then each phase's seconds, the kernel table, the card's name
 and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -2324,6 +2330,225 @@ def phase_fleet_feeder(clips, fleet_rows, fleet_boxes, cfg=None,
           "live_step_ms": _ms_stats(live_s)})
 
 
+# The checkpoint phase's live monitor: frame 0, 128 calibration frames, 1
+# dropped, 18 measured (BPM estimates from the 13th; too few breaths for a
+# BPM), saved after the 14th.
+CKPT_MEASURED = 18
+CKPT_SPLIT = 14
+# The fleet's steps (full rings installed: a BPM every step) before its
+# save and after it; the sharded fleet repeats all of them.
+CKPT_FLEET_STEPS = (2, 3)
+
+
+def _monitor_trace(mon):
+    """Step a monitor to the end of its clip: after each step its state,
+    ROI and BPM count, and its signal and BPM history at the end."""
+    import numpy as np
+
+    trace = []
+    while mon.step():
+        trace.append((mon.state, (mon.x, mon.y, mon.w, mon.h),
+                      len(mon.freq)))
+    mon.cap.release()
+    return trace, np.asarray(mon.data), np.asarray(mon.freq)
+
+
+def _fleet_with_rings(cfg, mesh, fleet_host, device):
+    """A fleet calibrated on ``fleet_host``'s frames 1..128 with full
+    signal rings installed (``_full_rings``)."""
+    from respmon_tpu_torch.parallel import streams
+
+    fleet = streams.MultiStreamMonitor(cfg, mesh, tuple(fleet_host.shape[2:]),
+                                       FPS, device=device)
+    boxes = fleet.calibrate(
+        fleet_host[:, 1:cfg.calibration.buffer_length + 1])
+    _full_rings(fleet, len(fleet_host), cfg.measure.buffer_length,
+                fleet.device)
+    return fleet, boxes
+
+
+def phase_checkpoint(frames, fleet_host, cfg=None, device=None):
+    """Checkpoint / resume on the card.  The 640x480 u8 flow monitor
+    (``frames``, a host clip of ``CKPT_MEASURED`` measured frames) saved
+    after ``CKPT_SPLIT`` of them and restored into a fresh monitor on
+    cuda:0 goes on as the uninterrupted one does, bit for bit: states,
+    ROIs, BPM counts and signal.  The 4 x 640x480 flow fleet
+    (``fleet_host``, full rings installed) saved after
+    ``CKPT_FLEET_STEPS[0]`` steps and restored into a fresh fleet gives the
+    uninterrupted fleet's next steps bit for bit: samples, BPMs, has_bpm
+    and errors.  Prints the save and load times, the file sizes and the
+    uninterrupted fleet's step times.  Returns the uninterrupted fleet's
+    rows (every step's (4, S) results)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.parallel import streams
+    from respmon_tpu_torch.runtime import checkpoint
+
+    cfg = cfg or MonitorConfig(motion_extraction_method="flow")
+    cal_len = cfg.calibration.buffer_length
+    split = 1 + cal_len + 1 + CKPT_SPLIT
+    card = torch.device(device or "cuda:0")
+    (want, want_data, want_freq), whole_s = wall_s(
+        lambda: _monitor_trace(make_monitor(frames, "flow", cfg,
+                                            device=device)))
+    first = make_monitor(frames[:split], "flow", cfg, device=device)
+    head, _, _ = _monitor_trace(first)
+    before, after = CKPT_FLEET_STEPS
+    row = {"phase": "checkpoint_640x480_flow", "monitor_measured":
+           CKPT_MEASURED, "monitor_saved_after": CKPT_SPLIT,
+           "fleet_steps": [before, after], "whole_monitor_s": whole_s}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "monitor.npz")
+        _, row["monitor_save_s"] = wall_s(
+            lambda: checkpoint.save_checkpoint(path, first))
+        resumed = make_monitor(frames[split:], "flow", cfg, device=device)
+        _, row["monitor_load_s"] = wall_s(
+            lambda: checkpoint.load_checkpoint(path, resumed))
+        row["monitor_file_bytes"] = os.path.getsize(path)
+        check(all(f.device == card for f in resumed._measure_state),
+              f"the restored monitor state lies on {card}")
+        tail, data, freq = _monitor_trace(resumed)
+        check(head + tail == want, "the resumed monitor's states, ROIs and "
+              "BPM counts equal the uninterrupted monitor's")
+        check(len(data) == len(want_data) == CKPT_MEASURED
+              and np.array_equal(data, want_data, equal_nan=True)
+              and np.array_equal(freq, want_freq),
+              "the resumed monitor's signal and BPMs equal the "
+              "uninterrupted monitor's")
+
+        first_step = cal_len + 2
+        fleet, _ = _fleet_with_rings(cfg, None, fleet_host, device)
+        timed_rows = [wall_s(lambda: fleet_step(
+            fleet, fleet_host[:, first_step + k])) for k in range(before)]
+        path = os.path.join(tmp, "fleet.npz")
+        _, row["fleet_save_s"] = wall_s(
+            lambda: checkpoint.save_fleet_checkpoint(path, fleet))
+        timed_rows += [wall_s(lambda: fleet_step(
+            fleet, fleet_host[:, first_step + k]))
+            for k in range(before, before + after)]
+        rows = [r for r, _ in timed_rows]
+        # The unsharded steps' times, beside phase_sharded's.
+        row["fleet_step_ms"] = _ms_stats([t for _, t in timed_rows])
+        resumed = streams.MultiStreamMonitor(
+            cfg, None, tuple(fleet_host.shape[2:]), FPS, device=device)
+        _, row["fleet_load_s"] = wall_s(
+            lambda: checkpoint.load_fleet_checkpoint(path, resumed))
+        row["fleet_file_bytes"] = os.path.getsize(path)
+    check(all(f.device == card for f in resumed.states),
+          f"the restored fleet state lies on {card}")
+    rows = np.stack(rows)
+    got = np.stack([fleet_step(resumed, fleet_host[:, first_step + k])
+                    for k in range(before, before + after)])
+    check((rows[:, 2] > 0).all(), "every fleet step gave every stream a BPM")
+    check(np.array_equal(got, rows[before:], equal_nan=True),
+          "the resumed fleet's samples, BPMs, has_bpm and errors equal "
+          "the uninterrupted fleet's bit for bit")
+    row.update(monitor_samples=data.tolist(),
+               fleet_bpm_rows=got[:, 1].tolist())
+    emit(row)
+    return rows
+
+
+def phase_sharded(frames, fleet_host, fleet_rows, cfg=None, device=None,
+                  backend="nccl"):
+    """The sharded paths in a one-rank NCCL group on the card: every
+    collective on CUDA tensors, K1 on the T-sharded shard (and on the
+    fleet's stream-sharded locates).  ``locate_tsharded`` of the 640x480
+    u8 calibration buffer (``frames[1:129]``, T = 128) has the bbox and
+    ``thresh > 0`` of ``evm.locate`` and a heatmap within 1;
+    ``locate_wsharded`` equals it bit for bit; the stream-sharded 4 x
+    640x480 flow fleet (full rings installed) gives ``phase_checkpoint``'s
+    uninterrupted fleet steps (``fleet_rows``) bit for bit, with one
+    results gather a step.  Prints the time of each (the unsharded
+    fleet's steps: ``phase_checkpoint``'s line).  Returns each path's
+    launches.  One rank measures no scaling.  (``device="cpu"`` with
+    ``backend="gloo"`` rehearses it on the CPU.)"""
+    import numpy as np
+    import torch
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.parallel import launch, spatial, streams, temporal
+    from respmon_tpu_torch.parallel.mesh import make_mesh
+    from respmon_tpu_torch.pipeline import evm
+
+    cfg = cfg or MonitorConfig(motion_extraction_method="flow")
+    cal = cfg.calibration
+    cal_len = cal.buffer_length
+    card = torch.device(device or "cuda:0")
+    buf = torch.from_numpy(frames[1:cal_len + 1]).to(card)
+
+    def timed3(fn):
+        out = fn()
+        return out, statistics.median(wall_s(fn)[1] for _ in range(3))
+
+    want, locate_s = timed3(lambda: evm.locate(buf, FPS, cal))
+    launches = {}
+    with launch.single_rank(backend):
+        mesh_t = make_mesh(axis_names=("time",), device=device)
+        check(mesh_t.device == card,
+              f"the mesh's device is {card} ({mesh_t.device})")
+        got_t, t_s = timed3(lambda: temporal.locate_tsharded(
+            buf, mesh_t, FPS, cal))
+        reset_launches()
+        temporal.locate_tsharded(buf, mesh_t, FPS, cal)
+        launches["tsharded"] = read_launches()
+        planned = planned_launches(*buf.shape[1:], cal.pyramid_levels,
+                                   cal.skip_levels_at_top)
+        check({k: launches["tsharded"][k] for k in planned} == planned,
+              f"the T-sharded locate ran K1 on its shard as planned "
+              f"({planned}): {launches['tsharded']}")
+        heat_gap = int((got_t.heatmap_u8.int() - want.heatmap_u8.int())
+                       .abs().max())
+        check(_bbox(got_t) == _bbox(want) and heat_gap <= 1
+              and torch.equal(got_t.thresh > 0, want.thresh > 0),
+              f"T-sharded bbox {_bbox(got_t)} equals locate's "
+              f"{_bbox(want)}, heatmap within 1 ({heat_gap})")
+
+        mesh_w = make_mesh(axis_names=("space",), device=device)
+        got_w, w_s = timed3(lambda: spatial.locate_wsharded(
+            buf, mesh_w, FPS, cal))
+        reset_launches()
+        spatial.locate_wsharded(buf, mesh_w, FPS, cal)
+        launches["wsharded"] = read_launches()
+        check(not any(launches["wsharded"].values()),
+              "the W-sharded locate runs its own stencils, no kernel")
+        check(all(torch.equal(a, b) for a, b in zip(got_w, want)),
+              "the W-sharded locate equals evm.locate bit for bit")
+
+        mesh_s = make_mesh(axis_names=("streams",), device=device)
+        first_step = cal_len + 2
+        reset_launches()
+        (fleet, boxes), cal_s = wall_s(
+            lambda: _fleet_with_rings(cfg, mesh_s, fleet_host, device))
+        mesh_s.collectives.clear()
+        rows, step_s = [], []
+        for k in range(len(fleet_rows)):
+            t0 = time.perf_counter()
+            rows.append(fleet_step(fleet, fleet_host[:, first_step + k]))
+            step_s.append(time.perf_counter() - t0)
+        launches["fleet"] = read_launches()
+        check_k1_fleet(launches["fleet"], fleet, "the stream-sharded fleet")
+        check(dict(mesh_s.collectives) == {"all_gather": len(fleet_rows)},
+              f"one results gather a step: {dict(mesh_s.collectives)}")
+        rows = np.stack(rows)
+        check(np.array_equal(rows, fleet_rows, equal_nan=True),
+              "the stream-sharded fleet's steps equal the unsharded "
+              "fleet's bit for bit")
+        counts = [dict(m.collectives) for m in (mesh_t, mesh_w)]
+    emit({"phase": "sharded_one_rank_nccl", "ranks": 1,
+          "locate_s": locate_s, "tsharded_locate_s": t_s,
+          "wsharded_locate_s": w_s, "tsharded_heatmap_gap": heat_gap,
+          "tsharded_collectives": counts[0],
+          "wsharded_collectives": counts[1],
+          "fleet_calibrate_s": cal_s, "fleet_boxes": boxes.boxes.tolist(),
+          "fleet_step_ms": _ms_stats(step_s), "launches": launches})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2369,6 +2594,7 @@ def main() -> int:
     monitor_launches, average_mon = timed(phase_monitor,
                                           host_frames[:MONITOR_FRAMES])
     timed(phase_feeder, host_frames, average_mon)
+    ckpt_frames = host_frames[:1 + 128 + 1 + CKPT_MEASURED].copy()
     del host_frames
     streaming_launches = timed(phase_streaming, dev)
     stream_monitor_launches = timed(phase_monitor_streaming,
@@ -2382,7 +2608,9 @@ def main() -> int:
     fleet = fleet_clips(1 + 128 + 1 + FLEET_MEASURED)
     fleet_launches, fleet_rows, fleet_boxes = timed(phase_fleet, fleet)
     timed(phase_fleet_feeder, fleet, fleet_rows, fleet_boxes)
-    del fleet
+    ckpt_rows = timed(phase_checkpoint, ckpt_frames, fleet)
+    sharded_launches = timed(phase_sharded, ckpt_frames, fleet, ckpt_rows)
+    del fleet, ckpt_frames
     timed(phase_fleet_cross_check)
     drifting = fleet_clips(1 + 128 + 1 + FLEET_STREAM_MEASURED, FLEET_DRIFTS)
     fleet_stream_launches = timed(phase_fleet_streaming, drifting)
@@ -2414,7 +2642,10 @@ def main() -> int:
              "fleet_streaming_640x480_average":
                  fleet_stream_launches["average"],
              "fleet_streaming_640x480_flow": fleet_stream_launches["flow"],
-             "fleet_1080p_streaming": fleet_1080p_launches}
+             "fleet_1080p_streaming": fleet_1080p_launches,
+             "tsharded_locate_640x480": sharded_launches["tsharded"],
+             "wsharded_locate_640x480": sharded_launches["wsharded"],
+             "fleet_sharded_640x480_flow": sharded_launches["fleet"]}
     own_path = {"pyr_down_levels_d2": "flow_640x480",
                 "pyr_down_levels_d1": "locate_1080p",
                 "pyr_tail": "flow_640x480",

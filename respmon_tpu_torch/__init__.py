@@ -6,8 +6,11 @@ on an NVIDIA Hopper GPU, where the Pallas pyramid kernels are hand-written
 CUDA (``csrc/pyramid.cu``, ``csrc/band_mm.cu``).  Covered so far: the live
 single-stream monitor ``runtime.RespiratoryMonitor`` with its host side
 (``io/``, ``viz/``, ``utils/bench``) and CLI (``python -m
-respmon_tpu_torch``), and the whole-clip path ``pipeline.scan.process_clip``
-/ ``process_clip_auto``, in average and flow mode.
+respmon_tpu_torch``), the whole-clip path ``pipeline.scan.process_clip``
+/ ``process_clip_auto``, in average and flow mode, the multi-stream fleet
+``parallel.streams.MultiStreamMonitor``, checkpoint / resume
+(``runtime.checkpoint``) and the sharded paths over ``torch.distributed``
+(``parallel/{mesh,launch,temporal,spatial}``).
 
 Precision policy (the port's counterpart of the JAX package's
 ``Precision.HIGHEST`` rule): float32 matrix products and convolutions run

@@ -1,4 +1,3 @@
-"""The multi-stream fleet on one device (the stream axis as a batch
-dimension).  The JAX package's sharded functions (``parallel/mesh``,
-``spatial``, ``temporal`` and the ``make_sharded_*`` factories) are not
-ported yet."""
+"""The multi-stream fleet (the stream axis as a batch dimension, on one
+device or sharded over the ranks of a ``torch.distributed`` mesh), the
+T- and W-sharded locates, the mesh and the launcher of ranks."""

@@ -1,7 +1,7 @@
-"""Multi-stream (multi-kennel) monitoring: S streams in lockstep on one card.
+"""Multi-stream (multi-kennel) monitoring: S streams in lockstep, on one
+card or sharded over the ranks of a mesh.
 
-Port of ``respmon_tpu/parallel/streams.py`` without its sharded functions
-(``make_sharded_*``, ``shard_streams``).  BASELINE.md config 5: 64
+Port of ``respmon_tpu/parallel/streams.py``.  BASELINE.md config 5: 64
 concurrent 1080p streams.  Each stream is an independent monitor (its own
 ROI and signal state).  Where the JAX package ``vmap``s the single-stream
 pipeline over a leading stream axis, the port carries that axis on every
@@ -9,6 +9,16 @@ tensor of the fleet step: one ``MultiStreamMonitor.step`` runs the same
 operations (and, given the same loop counts, the same launches) whether S
 is 2 or 64.  All streams share one crop bucket (the largest ROI, rounded up
 to ``roi_bucket``).
+
+With a mesh (``parallel/mesh``), each rank runs these batch functions on
+its own S / n rows of the stream axis (``stream_sharding``): the JAX
+package's ``shard_map`` programs are data-parallel with no collective, and
+so is the port's work.  Every rank keeps the single-card host API (global
+(S, H, W) frames in, global (S,) results out), so a step's one collective
+is one ``all_gather`` of its per-stream results (``gather_rows``).  The
+``make_sharded_*`` factories return functions of this rank's rows (as
+``shard_streams`` places them) whose per-stream outputs are global and
+whose carried state stays this rank's rows.
 
 The port loops over streams in three places, each where one stream's work
 fills the card or runs rarely: ``locate_streams`` (one ``locate`` per
@@ -30,6 +40,7 @@ from respmon_tpu_torch import device as device_mod
 from respmon_tpu_torch.config import MonitorConfig
 from respmon_tpu_torch.ops import filters
 from respmon_tpu_torch.ops.dtype import ingest_frames
+from respmon_tpu_torch.parallel.mesh import Mesh, stream_sharding
 from respmon_tpu_torch.pipeline import bpm as bpm_mod
 from respmon_tpu_torch.pipeline import evm, motion, scan, streaming
 
@@ -240,27 +251,168 @@ def init_stream_states(spec: motion.MeasureSpec, rois,
     return batched._replace(roi=rois.to(base.roi.device))
 
 
+# ---------------------------------------------------------------------------
+# The sharded fleet: each rank runs the batch functions above on its own
+# S / n rows of the stream axis.  The only collective is the gather of the
+# per-stream outputs that every rank's host API returns.
+# ---------------------------------------------------------------------------
+
+
+def shard_streams(tree, mesh: Mesh, axis: str = "streams"):
+    """This rank's rows (``stream_sharding``) of a (named) tuple of (S, ...)
+    tensors or numpy arrays, on the mesh's device: the port's placement of
+    a stream-sharded tree onto the mesh."""
+    if isinstance(tree, tuple):
+        vals = [shard_streams(x, mesh, axis) for x in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    rows = stream_sharding(mesh, tree.shape[0], axis)
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(np.array(tree[rows])).to(mesh.device)
+    return tree[rows].to(mesh.device)
+
+
+def gather_rows(mesh: Mesh, tensors, axis: str = "streams", dim: int = 0):
+    """The global tensors of every rank's rows along ``dim``, in ONE
+    ``all_gather``: the rows travel packed side by side as float64, which
+    holds every dtype the fleet gathers (bool, uint8, int32, float32,
+    float64) exactly, and come back in their own dtypes and shapes."""
+    tensors = [t.movedim(dim, 0) for t in tensors]
+    n_rows = tensors[0].shape[0]
+    packed = torch.cat([t.reshape(n_rows, -1).to(torch.float64)
+                        for t in tensors], dim=1)
+    full = mesh.all_gather(packed, axis)
+    out, k = [], 0
+    for t in tensors:
+        width = int(np.prod(t.shape[1:], dtype=np.int64))
+        part = full[:, k:k + width].to(t.dtype)
+        out.append(part.reshape((-1,) + tuple(t.shape[1:])).movedim(0, dim))
+        k += width
+    return out
+
+
+def _gather_result(mesh: Mesh, axis: str, res, dim: int = 0):
+    """A step or scan result with its per-stream outputs made global (one
+    ``all_gather``); its state stays this rank's rows."""
+    samples, bpm, has, err = gather_rows(
+        mesh, (res.samples, res.bpm, res.has_bpm, res.error), axis, dim)
+    return res._replace(samples=samples, bpm=bpm, has_bpm=has, error=err)
+
+
+def make_sharded_locate(mesh: Mesh, fps: float, cfg,
+                        axis: str = "streams"):
+    """Calibration of this rank's (S / n, T, H, W) buffers, one
+    ``evm.locate`` per local stream; the ``BatchedLocate`` comes back
+    global."""
+    def local(buffers) -> BatchedLocate:
+        return BatchedLocate(*gather_rows(
+            mesh, locate_streams(buffers, fps, cfg), axis))
+    return local
+
+
+def make_sharded_monitor_step(mesh: Mesh, spec: motion.MeasureSpec,
+                              coeffs: filters.FilterCoeffs, min_dist: int,
+                              cfg, axis: str = "streams",
+                              initialized: bool = False):
+    """``monitor_step_streams`` on this rank's rows: each rank's loops
+    (LK, the LM fit) stop on its own streams alone."""
+    def local(states, frames) -> StreamStepResult:
+        return _gather_result(mesh, axis, monitor_step_streams(
+            states, frames, spec, coeffs, min_dist, cfg, initialized))
+    return local
+
+
+def make_sharded_monitor_step_cached(mesh: Mesh, spec: motion.MeasureSpec,
+                                     coeffs: filters.FilterCoeffs,
+                                     min_dist: int, cfg,
+                                     axis: str = "streams",
+                                     initialized: bool = False,
+                                     cache_valid: bool = True):
+    """``monitor_step_streams_cached`` on this rank's rows and its rows of
+    the carried LK cache.  Returns (result, this rank's new cache)."""
+    def local(states, cache, frames):
+        res, cache = monitor_step_streams_cached(
+            states, cache, frames, spec, coeffs, min_dist, cfg,
+            initialized, cache_valid)
+        return _gather_result(mesh, axis, res), cache
+    return local
+
+
+def make_sharded_monitor_scan(mesh: Mesh, spec: motion.MeasureSpec,
+                              coeffs: filters.FilterCoeffs, min_dist: int,
+                              cfg, axis: str = "streams",
+                              initialized: bool = False):
+    """``monitor_scan_streams`` over this rank's (K, S / n, H, W) frames;
+    the (K, S) outputs come back global."""
+    def local(states, frames) -> StreamBatchResult:
+        return _gather_result(mesh, axis, monitor_scan_streams(
+            states, frames, spec, coeffs, min_dist, cfg, initialized),
+            dim=1)
+    return local
+
+
+def make_sharded_absorb(mesh: Mesh, cfg, axis: str = "streams"):
+    """``absorb_streams`` on this rank's rings (no collective)."""
+    del mesh, axis
+
+    def local(sstate, frames):
+        return absorb_streams(sstate, frames, cfg)
+    return local
+
+
+def make_sharded_update(mesh: Mesh, fps: float, cfg,
+                        axis: str = "streams", coarse: bool = True):
+    """``update_streams`` on this rank's rings; the per-stream
+    ``StreamingLocate`` comes back global."""
+    def local(sstate, frames):
+        sstate, loc = update_streams(sstate, frames, fps, cfg, coarse)
+        return sstate, streaming.StreamingLocate(*gather_rows(mesh, loc,
+                                                              axis))
+    return local
+
+
+def make_sharded_relock(mesh: Mesh, spec: motion.MeasureSpec,
+                        axis: str = "streams"):
+    """``relock_streams`` on this rank's rows of the states, frames, new
+    ROIs and mask (no collective)."""
+    del mesh, axis
+
+    def local(states, frames, new_rois, apply):
+        return relock_streams(states, frames, new_rois, apply, spec)
+    return local
+
+
 class MultiStreamMonitor:
-    """Fleet monitor: S concurrent streams on one card.
+    """Fleet monitor: S concurrent streams on one card, or sharded over
+    the ``"streams"`` axis of a mesh.
 
     The multi-kennel deployment surface (BASELINE.md config 5): calibrate
     all streams, then step frames in lockstep batches.  Per-stream error
     flags surface so the host can recalibrate individual streams
     (``recalibrate`` with a stream mask).  The signature is the JAX
-    package's, plus ``device`` (``None``: the card); ``mesh`` must be
-    ``None``, as the sharded fleet is not ported yet."""
+    package's, plus ``device`` (``None``: the card, or with a mesh the
+    mesh's device).
 
-    def __init__(self, cfg: MonitorConfig, mesh,
+    With a mesh every rank makes the same calls with the same global
+    arguments ((S, ...) buffers and frames, S divisible by the axis size)
+    and gets the same global per-stream results; ``states``, the carried
+    LK cache and the streaming rings hold this rank's rows only."""
+
+    def __init__(self, cfg: MonitorConfig, mesh: Optional[Mesh],
                  frame_hw: Tuple[int, int], fps: float,
                  dtype=torch.float32, streaming_coarse: bool = True,
                  device=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded fleet (a device mesh) is not ported yet "
-                "(ROADMAP.md queue 1 item 6); pass mesh=None")
         self.cfg = cfg
-        self.mesh = None
-        self.device = device_mod.resolve(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = device_mod.resolve(device)
+        else:
+            if "streams" not in mesh.shape:
+                raise ValueError("a fleet's mesh needs a 'streams' axis, "
+                                 f"not {mesh.axis_names}")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            self.device = mesh.device
         self.frame_hw = tuple(frame_hw)
         self.dtype = dtype
         self.spec: Optional[motion.MeasureSpec] = None
@@ -322,12 +474,24 @@ class MultiStreamMonitor:
         self.min_dist = max(
             int(np.floor(self.fps / cfg.calibration.freq_max)), 1)
 
-    def _ingest(self, frames) -> torch.Tensor:
-        return ingest_frames(frames, self.dtype, self.device)
+    def _own(self, x, dim: int = 0):
+        """This rank's rows of a global stream axis at ``dim`` (all of
+        them without a mesh), where it lies: numpy or a tensor."""
+        if self.mesh is None:
+            return x
+        rows = stream_sharding(self.mesh, x.shape[dim])
+        return x[(slice(None),) * dim + (rows,)]
+
+    def _ingest(self, frames, dim: int = 0) -> torch.Tensor:
+        """This rank's rows of global frames, staged on its device."""
+        return ingest_frames(self._own(frames, dim), self.dtype, self.device)
 
     def _locate(self, dev) -> BatchedLocate:
         self.locates += dev.shape[0]
-        return locate_streams(dev, self.fps, self.cfg.calibration)
+        if self.mesh is None:
+            return locate_streams(dev, self.fps, self.cfg.calibration)
+        return make_sharded_locate(self.mesh, self.fps,
+                                   self.cfg.calibration)(dev)
 
     def _warm_start(self, dev):
         self.streaming_starts += 1
@@ -344,8 +508,8 @@ class MultiStreamMonitor:
         self.spec = motion.MeasureSpec.for_roi(
             self.cfg, self.frame_hw[0], self.frame_hw[1], wmax, hmax,
             self.fps)
-        self.states = init_stream_states(self.spec, boxes, self.dtype,
-                                         self.device)
+        self.states = init_stream_states(self.spec, self._own(boxes),
+                                         self.dtype, self.device)
         self._needs_init = True
         self._rois = boxes.astype(np.int32).copy()
         if self.cfg.streaming_roi:
@@ -389,8 +553,9 @@ class MultiStreamMonitor:
         if not apply.any():
             return installed
 
-        fresh = init_stream_states(self.spec, boxes, self.dtype, self.device)
-        sel = torch.as_tensor(apply, device=self.device)
+        fresh = init_stream_states(self.spec, self._own(boxes), self.dtype,
+                                   self.device)
+        sel = torch.as_tensor(self._own(apply), device=self.device)
         self.states = motion.where_streams(sel, fresh, self.states)
         self._needs_init = True   # fresh streams detect corners anew
         if self._rois is not None:
@@ -415,16 +580,29 @@ class MultiStreamMonitor:
             self.stale_rows += int(np.asarray(stale).sum())
         initialized = not self._needs_init
         if self.spec.method == "flow":
-            res, self._cache = monitor_step_streams_cached(
-                self._states, self._cache, dev, self.spec, self.coeffs,
-                self.min_dist, self.measure_cfg, initialized=initialized,
-                cache_valid=self._cache is not None)
+            if self.mesh is None:
+                res, self._cache = monitor_step_streams_cached(
+                    self._states, self._cache, dev, self.spec, self.coeffs,
+                    self.min_dist, self.measure_cfg, initialized=initialized,
+                    cache_valid=self._cache is not None)
+            else:
+                res, self._cache = make_sharded_monitor_step_cached(
+                    self.mesh, self.spec, self.coeffs, self.min_dist,
+                    self.measure_cfg, initialized=initialized,
+                    cache_valid=self._cache is not None)(
+                        self._states, self._cache, dev)
             self._states = res.state
         else:
-            res = monitor_step_streams(self.states, dev, self.spec,
-                                       self.coeffs, self.min_dist,
-                                       self.measure_cfg,
-                                       initialized=initialized)
+            if self.mesh is None:
+                res = monitor_step_streams(self.states, dev, self.spec,
+                                           self.coeffs, self.min_dist,
+                                           self.measure_cfg,
+                                           initialized=initialized)
+            else:
+                res = make_sharded_monitor_step(
+                    self.mesh, self.spec, self.coeffs, self.min_dist,
+                    self.measure_cfg, initialized=initialized)(
+                        self.states, dev)
             self.states = res.state
         self._needs_init = False
         self._streaming_step(dev)
@@ -441,11 +619,20 @@ class MultiStreamMonitor:
         self.streaming_absorbed += 1
         cal = self.cfg.calibration
         if self._stream_tick % self.cfg.streaming_interval:
-            self._streaming = absorb_streams(self._streaming, dev, cal)
+            if self.mesh is None:
+                self._streaming = absorb_streams(self._streaming, dev, cal)
+            else:
+                self._streaming = make_sharded_absorb(self.mesh, cal)(
+                    self._streaming, dev)
             return
-        self._streaming, loc = update_streams(
-            self._streaming, dev, self.fps, cal,
-            coarse=self.streaming_coarse)
+        if self.mesh is None:
+            self._streaming, loc = update_streams(
+                self._streaming, dev, self.fps, cal,
+                coarse=self.streaming_coarse)
+        else:
+            self._streaming, loc = make_sharded_update(
+                self.mesh, self.fps, cal, coarse=self.streaming_coarse)(
+                    self._streaming, dev)
         self._maybe_relock(loc, dev)
 
     def _maybe_relock(self, loc, dev) -> None:
@@ -480,8 +667,12 @@ class MultiStreamMonitor:
         new_rois = np.stack([x2, y2, w, h], axis=1).astype(np.int32)
         # The property setter also drops the carried LK cache (re-locked
         # streams re-cropped prev from the current frame).
-        self.states = relock_streams(self._states, dev, new_rois, apply,
-                                     self.spec)
+        if self.mesh is None:
+            self.states = relock_streams(self._states, dev, new_rois, apply,
+                                         self.spec)
+        else:
+            self.states = make_sharded_relock(self.mesh, self.spec)(
+                self._states, dev, self._own(new_rois), self._own(apply))
         self._rois[apply] = new_rois[apply]
         self.relocks += int(apply.sum())
 
@@ -492,11 +683,17 @@ class MultiStreamMonitor:
         into the rolling rings (a K-frame gap would break the bandpass's
         contiguous window)."""
         assert self.states is not None, "calibrate() first"
-        dev = self._ingest(frames)
+        dev = self._ingest(frames, dim=1)
         initialized = not self._needs_init
-        res = monitor_scan_streams(self.states, dev, self.spec, self.coeffs,
-                                   self.min_dist, self.measure_cfg,
-                                   initialized=initialized)
+        if self.mesh is None:
+            res = monitor_scan_streams(self.states, dev, self.spec,
+                                       self.coeffs, self.min_dist,
+                                       self.measure_cfg,
+                                       initialized=initialized)
+        else:
+            res = make_sharded_monitor_scan(
+                self.mesh, self.spec, self.coeffs, self.min_dist,
+                self.measure_cfg, initialized=initialized)(self.states, dev)
         self.states = res.state
         self._needs_init = False
         return res

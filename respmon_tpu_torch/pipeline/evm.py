@@ -131,6 +131,21 @@ def _collapse(band: Dict[int, torch.Tensor], shapes, t_len: int,
     return img
 
 
+def _tmean(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """The mean over axis 0 (T) as a pairwise sum of whole frames, then
+    / T.  Every pixel's sum runs in the same order whatever the other
+    axes hold, so a W-shard of the frames or one stream of a batch gets
+    the bits of the whole (``Tensor.mean`` picks its summation order by
+    shape, on the CPU and on the card)."""
+    t_len = x.shape[0]
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        pairs = x[:half] + x[half:2 * half]
+        x = torch.cat([pairs, x[2 * half:]]) if x.shape[0] % 2 else pairs
+    out = x / t_len
+    return out if keepdim else out[0]
+
+
 def _suppress_top(raw: torch.Tensor, cfg: CalibrationConfig):
     lo = raw.min()
     hi = raw.max()
@@ -190,10 +205,10 @@ def locate_verbose(vid: torch.Tensor, fps: float, cfg: CalibrationConfig) \
 def _locate_from_evm(band: Dict[int, torch.Tensor], raw: torch.Tensor,
                      shapes, cfg: CalibrationConfig) -> LocateResult:
     """The heatmaps of the EVM's output, then ``_finish_locate``."""
-    avg = _suppress_top(raw, cfg).mean(dim=0)
+    avg = _tmean(_suppress_top(raw, cfg))
     # pyrUp is linear, so the raw heatmap is one single-frame collapse of
     # the T-means of the band levels — the JAX package's formulation.
-    mean_band = {i: lvl.mean(dim=0, keepdim=True) for i, lvl in band.items()}
+    mean_band = {i: _tmean(lvl, keepdim=True) for i, lvl in band.items()}
     raw_avg = _collapse(mean_band, shapes, 1, raw)[0]
     return _finish_locate(avg, raw_avg, cfg)
 

@@ -170,7 +170,7 @@ def localize_batch(state: StreamingState, frame_hw: Tuple[int, int],
     lo = img.amin(dim=(0, 2, 3), keepdim=True)
     hi = img.amax(dim=(0, 2, 3), keepdim=True)
     top = hi - (hi - lo) * cfg.temporal_threshold
-    avg = torch.where(img >= top, lo, img).mean(dim=0)
+    avg = evm._tmean(torch.where(img >= top, lo, img))
     # The heatmap and threshold of evm._heat_and_box per stream.
     amin = avg.amin(dim=(1, 2), keepdim=True)
     amax = avg.amax(dim=(1, 2), keepdim=True)

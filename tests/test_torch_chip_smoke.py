@@ -226,7 +226,8 @@ def test_main_prints_each_phase_seconds_within_the_budget():
                   "phase_iir_locate", "phase_monitor_recovery",
                   "phase_fleet", "phase_fleet_feeder",
                   "phase_fleet_cross_check", "phase_fleet_streaming",
-                  "phase_fleet_1080p", "phase_fleet_kernels"):
+                  "phase_fleet_1080p", "phase_fleet_kernels",
+                  "phase_checkpoint", "phase_sharded"):
         assert f"timed({phase}" in src
     assert '"phase_seconds"' in src and chip_smoke.TIME_BUDGET_S == 900
 
@@ -297,3 +298,34 @@ def test_fleet_streaming_and_1080p_phases_rehearse_on_the_cpu(
     assert row["streaming"]["split_ms"]["localize"]["n"] == 1
     assert len(row["f64_refine"]["step_ms"]) == 3
     assert row["k1_absorb_max_abs_err"] == 0.0
+
+
+def test_checkpoint_and_sharded_phases_rehearse_on_the_cpu(
+        planned_launches):
+    lines = planned_launches
+    cal_len = FLEET_CFG.calibration.buffer_length
+    steps = sum(chip_smoke.CKPT_FLEET_STEPS)
+    clips = chip_smoke.fleet_clips(1 + cal_len + 1 + steps, **FLEET_SMALL)
+    frames = _u8_clip(1 + cal_len + 1 + chip_smoke.CKPT_MEASURED)
+    rows = chip_smoke.phase_checkpoint(frames, clips, FLEET_CFG, "cpu")
+    row = lines[-1]
+    assert row["phase"] == "checkpoint_640x480_flow"
+    assert len(row["monitor_samples"]) == chip_smoke.CKPT_MEASURED
+    assert row["monitor_file_bytes"] > 0 and row["fleet_file_bytes"] > 0
+    assert rows.shape == (steps, 4, 4)
+
+    launches = chip_smoke.phase_sharded(frames, clips, rows, FLEET_CFG,
+                                        "cpu", "gloo")
+    row = lines[-1]
+    assert row["phase"] == "sharded_one_rank_nccl"
+    # One K1 call on the T-sharded shard, none in the W-sharded locate,
+    # one per stream's locate in the fleet.
+    assert launches["tsharded"]["pyr_tail"] == 1
+    assert not any(launches["wsharded"].values())
+    assert launches["fleet"]["pyr_tail"] == 4
+    # Five T-sharded locates (a first, three timed, one counted), one
+    # reduce-scatter a kept level each.
+    assert row["tsharded_collectives"]["reduce_scatter"] == 5 * (
+        FLEET_CFG.calibration.pyramid_levels - 1
+        - FLEET_CFG.calibration.skip_levels_at_top)
+    assert row["fleet_step_ms"]["n"] == steps

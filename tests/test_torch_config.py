@@ -22,6 +22,8 @@ from respmon_tpu_torch import device as tdevice
 from respmon_tpu_torch import interop
 from respmon_tpu_torch.io import synthetic as tsyn
 from respmon_tpu_torch.ops import dtype as tdtype
+from respmon_tpu_torch.parallel import launch
+from respmon_tpu_torch.parallel import mesh as tmesh
 from respmon_tpu_torch.parallel import streams as tstreams
 from respmon_tpu_torch.pipeline import motion as tmotion
 from respmon_tpu_torch.pipeline import scan as tscan
@@ -140,12 +142,26 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     assert os.path.join(REPO, "respmon_tpu_torch", "pipeline",
                         "streaming.py") in paths
     for part in (("parallel", "streams.py"), ("parallel", "__init__.py"),
-                 ("runtime", "fleet_feeder.py")):
+                 ("runtime", "fleet_feeder.py"), ("runtime", "checkpoint.py"),
+                 ("parallel", "mesh.py"), ("parallel", "temporal.py"),
+                 ("parallel", "spatial.py"), ("parallel", "launch.py"),
+                 ("parallel", "dryrun.py")):
         assert os.path.join(REPO, "respmon_tpu_torch", *part) in paths
     for path in paths:
         with open(path) as fh:
             hit = pattern.search(fh.read())
         assert hit is None, f"{path}: {hit.group(0)!r}"
+
+
+def test_test_modules_with_rank_functions_import_no_jax_at_top():
+    # A spawned rank imports the module of its function: these import JAX
+    # inside their tests only (their ranks check sys.modules as well).
+    pattern = re.compile(r"^(from|import)\s+(jax|jaxlib|respmon_tpu)(\.|\s|$)",
+                         re.M)
+    for name in ("test_torch_parallel.py", "test_torch_checkpoint.py"):
+        with open(os.path.join(REPO, "tests", name)) as fh:
+            hit = pattern.search(fh.read())
+        assert hit is None, f"{name}: {hit.group(0)!r}"
 
 
 def test_importing_every_port_module_loads_neither_jax_nor_the_jax_package():
@@ -156,6 +172,9 @@ def test_importing_every_port_module_loads_neither_jax_nor_the_jax_package():
     assert "respmon_tpu_torch.pipeline.streaming" in names
     assert "respmon_tpu_torch.parallel.streams" in names
     assert "respmon_tpu_torch.runtime.fleet_feeder" in names
+    for name in ("runtime.checkpoint", "parallel.mesh", "parallel.temporal",
+                 "parallel.spatial", "parallel.launch", "parallel.dryrun"):
+        assert "respmon_tpu_torch." + name in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r} + ['chip_smoke']:\n"
@@ -214,10 +233,16 @@ def _no_card_calls():
             spec, [(0, 0, 16, 12)] * 2),
         "init_fleet_streaming": lambda: tstreams.init_fleet_streaming(
             (48, 64), SMALL_CFG.calibration, 2),
+        "make_mesh": lambda: _one_rank_mesh(),
         "flow_cache_from_numpy": lambda: interop.flow_cache_from_numpy(
             interop.flow_cache_to_numpy(
                 tmotion.init_flow_cache(spec, device="cpu"))),
     }
+
+
+def _one_rank_mesh():
+    with launch.single_rank("gloo"):
+        tmesh.make_mesh()
 
 
 @pytest.mark.parametrize("entry", sorted(_no_card_calls()))

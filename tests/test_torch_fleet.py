@@ -30,6 +30,8 @@ from respmon_tpu.io.synthetic import breathing_clip
 from respmon_tpu.parallel import streams as jstreams
 from respmon_tpu_torch import interop
 from respmon_tpu_torch.ops import filters as tfilters
+from respmon_tpu_torch.parallel import launch
+from respmon_tpu_torch.parallel import mesh as tmesh
 from respmon_tpu_torch.parallel import streams as tstreams
 from respmon_tpu_torch.pipeline import bpm as tbpm
 from respmon_tpu_torch.pipeline import evm as tevm
@@ -410,11 +412,25 @@ def test_fleet_step_work_does_not_grow_with_streams():
     assert _op_count(2) == _op_count(4)
 
 
-def test_mesh_must_be_none():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tstreams.MultiStreamMonitor(
-            interop.config_from_reference(SMALL_CFG), object(), (H, W), FPS,
-            device="cpu")
+def test_one_rank_mesh_steps_as_no_mesh():
+    # A fleet on a one-rank gloo mesh takes the sharded branches (its
+    # rows are all the streams) and steps as the fleet without a mesh.
+    clips = _stream_clips(2, 40, method="flow")
+    tcfg = interop.config_from_reference(FLOW_CFG)
+    rows = {}
+    with launch.single_rank("gloo"):
+        for name, mesh in (("none", None),
+                           ("mesh", tmesh.make_mesh(device="cpu"))):
+            tmon = tstreams.MultiStreamMonitor(tcfg, mesh, (H, W), FPS,
+                                               device="cpu")
+            tmon.calibrate(clips[:, :32])
+            res = [tmon.step(clips[:, f]) for f in range(33, 37)]
+            rows[name] = [torch.stack([r.samples.double(), r.bpm.double(),
+                                       r.has_bpm.double(),
+                                       r.error.double()]) for r in res]
+        assert mesh.collectives == {"all_gather": 1 + 4}
+    for a, b in zip(rows["mesh"], rows["none"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
