@@ -2,10 +2,11 @@
 
 Port of ``respmon_tpu/parallel/mesh.py``.  The JAX package builds a
 ``jax.sharding.Mesh`` over the devices one process sees and places arrays
-on it; the port runs one process (a rank) per device, and one mesh axis is
-one ``torch.distributed`` process group.  A ``Mesh`` knows, for each named
-axis, its size, this rank's index along it and its group, and it knows the
-rank's device: ``cuda:<local rank>`` by default, the CPU when asked for.
+on it; the port runs one process (a rank) per device, and a mesh is one
+named axis over the whole default process group.  A ``Mesh`` knows its
+axis's name and size, this rank's index along it, and the rank's device:
+``cuda:<local rank>`` by default, the CPU when asked for.  Every sharded
+path shards one axis, so meshes are 1-D.
 
 Sharded code talks to the other ranks only through the mesh's collective
 methods (``all_gather``, ``all_reduce``, ``reduce_scatter``, ``exchange``,
@@ -18,11 +19,9 @@ raises.
 from __future__ import annotations
 
 import collections
-import itertools
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -31,23 +30,29 @@ _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
 
 
 class Mesh:
-    """This rank's view of an n-D mesh of ranks with named axes."""
+    """This rank's view of a 1-D mesh: one named axis over the ranks of
+    the default process group, in rank order.  The collectives take the
+    axis's name, as the JAX package's do, and raise ``KeyError`` for
+    another."""
 
-    def __init__(self, axis_names: Sequence[str],
-                 axis_sizes: Sequence[int], groups: Sequence,
-                 group_ranks: Sequence[List[int]],
-                 index: Sequence[int], device: torch.device) -> None:
-        self.axis_names = tuple(axis_names)
-        self.shape: Dict[str, int] = dict(zip(axis_names, axis_sizes))
-        self._groups = dict(zip(axis_names, groups))
-        self._ranks = dict(zip(axis_names, group_ranks))
-        self._index = dict(zip(axis_names, index))
+    def __init__(self, axis_name: str, size: int, rank: int,
+                 device: torch.device) -> None:
+        self.axis_names = (axis_name,)
+        self.shape: Dict[str, int] = {axis_name: size}
+        self._rank = rank
         self.device = device
         self.collectives: collections.Counter = collections.Counter()
 
+    def _size(self, axis: str) -> int:
+        if axis not in self.shape:
+            raise KeyError(f"{axis!r} is not this mesh's axis "
+                           f"{self.axis_names[0]!r}")
+        return self.shape[axis]
+
     def index(self, axis: str) -> int:
         """This rank's position along ``axis`` (``lax.axis_index``)."""
-        return self._index[axis]
+        self._size(axis)
+        return self._rank
 
     def all_gather(self, x: torch.Tensor, axis: str,
                    dim: int = 0) -> torch.Tensor:
@@ -55,17 +60,18 @@ class Mesh:
         axis order (``lax.all_gather(..., tiled=True)``)."""
         self.collectives["all_gather"] += 1
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.shape[axis])]
-        dist.all_gather(parts, x, group=self._groups[axis])
+        parts = [torch.empty_like(x) for _ in range(self._size(axis))]
+        dist.all_gather(parts, x)
         return torch.cat(parts, dim=dim)
 
     def all_reduce(self, x: torch.Tensor, op: str, axis: str) \
             -> torch.Tensor:
         """``x`` reduced over ``axis`` with ``op`` ("sum", "min" or "max");
         ``x`` itself is left as it was."""
+        self._size(axis)
         self.collectives["all_reduce"] += 1
         out = x.clone().contiguous()
-        dist.all_reduce(out, op=_OPS[op], group=self._groups[axis])
+        dist.all_reduce(out, op=_OPS[op])
         return out
 
     def reduce_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -73,10 +79,10 @@ class Mesh:
         keeps its block of rows along dim 0 (``lax.psum_scatter(...,
         scatter_dimension=0, tiled=True)``)."""
         self.collectives["reduce_scatter"] += 1
-        n = self.shape[axis]
+        n = self._size(axis)
         parts = [p.contiguous() for p in x.chunk(n, dim=0)]
         out = torch.empty_like(parts[0])
-        dist.reduce_scatter(out, parts, group=self._groups[axis])
+        dist.reduce_scatter(out, parts)
         return out
 
     def exchange(self, to_left: torch.Tensor, to_right: torch.Tensor,
@@ -89,21 +95,18 @@ class Mesh:
         their sides are ``None`` and nothing is sent there (the JAX
         package's ``ppermute`` ring sends them too, and throws them away).
         """
-        i, n = self._index[axis], self.shape[axis]
-        ranks, group = self._ranks[axis], self._groups[axis]
+        i, n = self.index(axis), self._size(axis)
         from_left = torch.empty_like(to_right) if i > 0 else None
         from_right = torch.empty_like(to_left) if i < n - 1 else None
         ops = []
         if i > 0:
-            ops += [dist.P2POp(dist.isend, to_left.contiguous(),
-                               ranks[i - 1], group, tag=1),
-                    dist.P2POp(dist.irecv, from_left, ranks[i - 1], group,
-                               tag=0)]
+            ops += [dist.P2POp(dist.isend, to_left.contiguous(), i - 1,
+                               tag=1),
+                    dist.P2POp(dist.irecv, from_left, i - 1, tag=0)]
         if i < n - 1:
-            ops += [dist.P2POp(dist.isend, to_right.contiguous(),
-                               ranks[i + 1], group, tag=0),
-                    dist.P2POp(dist.irecv, from_right, ranks[i + 1], group,
-                               tag=1)]
+            ops += [dist.P2POp(dist.isend, to_right.contiguous(), i + 1,
+                               tag=0),
+                    dist.P2POp(dist.irecv, from_right, i + 1, tag=1)]
         if ops:
             self.collectives["exchange"] += 1
             for req in dist.batch_isend_irecv(ops):
@@ -131,46 +134,22 @@ def _rank_device(rank: int) -> torch.device:
 def make_mesh(axis_sizes: Optional[Sequence[int]] = None,
               axis_names: Sequence[str] = ("streams",),
               device=None) -> Mesh:
-    """A mesh over every rank of the initialised default process group
-    (default: 1-D over all of them), ranks laid out in row-major order.
-
-    Every rank must make the same meshes in the same order: an axis that
-    does not span the whole group gets process groups of its own, and
-    making one is a call of every rank.  ``device=None`` means the rank's
-    card; ``device="cpu"`` computes on the CPU (the gloo backend)."""
+    """A 1-D mesh over every rank of the initialised default process
+    group.  The signature is the JAX package's: ``axis_names`` holds one
+    name and ``axis_sizes`` is ``None`` or ``(world size,)``; anything
+    else raises ``ValueError``.  ``device=None`` means the rank's card;
+    ``device="cpu"`` computes on the CPU (the gloo backend)."""
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs an initialised torch.distributed process group "
             "(parallel.launch.run_ranks starts ranks with one)")
     world, rank = dist.get_world_size(), dist.get_rank()
-    sizes = tuple(axis_sizes) if axis_sizes is not None else (world,)
-    if len(sizes) != len(axis_names):
-        raise ValueError(f"{len(sizes)} axis sizes for axis names "
-                         f"{tuple(axis_names)}")
-    if int(np.prod(sizes)) != world:
-        raise ValueError(f"mesh {sizes} does not cover the {world} ranks")
-    coords = np.arange(world).reshape(sizes)
-    index = np.unravel_index(rank, sizes)
-    groups, group_ranks = [], []
-    for k in range(len(sizes)):
-        if sizes[k] == world:
-            groups.append(dist.group.WORLD)
-            group_ranks.append(list(range(world)))
-            continue
-        mine = None
-        others = [range(s) for j, s in enumerate(sizes) if j != k]
-        for rest in itertools.product(*others):
-            sel = list(rest)
-            sel.insert(k, slice(None))
-            ranks = coords[tuple(sel)].tolist()
-            group = dist.new_group(ranks)
-            if rank in ranks:
-                mine = (group, ranks)
-        groups.append(mine[0])
-        group_ranks.append(mine[1])
+    if len(axis_names) != 1 or (axis_sizes is not None
+                                and tuple(axis_sizes) != (world,)):
+        raise ValueError(f"a mesh is 1-D over all {world} ranks, not axes "
+                         f"{tuple(axis_names)} of sizes {axis_sizes}")
     dev = _rank_device(rank) if device is None else torch.device(device)
-    return Mesh(axis_names, sizes, groups, group_ranks,
-                [int(i) for i in index], dev)
+    return Mesh(axis_names[0], world, rank, dev)
 
 
 def stream_sharding(mesh: Mesh, n_streams: int,

@@ -16,9 +16,11 @@ package's ``shard_map`` programs are data-parallel with no collective, and
 so is the port's work.  Every rank keeps the single-card host API (global
 (S, H, W) frames in, global (S,) results out), so a step's one collective
 is one ``all_gather`` of its per-stream results (``gather_rows``).  The
-``make_sharded_*`` factories return functions of this rank's rows (as
-``shard_streams`` places them) whose per-stream outputs are global and
-whose carried state stays this rank's rows.
+fleet calls the batch functions on its rows and gathers what they return;
+the ``make_sharded_*`` factories (the JAX package's names) are that pair
+as one function of this rank's rows (as ``shard_streams`` places them):
+its per-stream outputs are global and its carried state stays this rank's
+rows.
 
 The port loops over streams in three places, each where one stream's work
 fills the card or runs rarely: ``locate_streams`` (one ``locate`` per
@@ -254,7 +256,9 @@ def init_stream_states(spec: motion.MeasureSpec, rois,
 # ---------------------------------------------------------------------------
 # The sharded fleet: each rank runs the batch functions above on its own
 # S / n rows of the stream axis.  The only collective is the gather of the
-# per-stream outputs that every rank's host API returns.
+# per-stream outputs that every rank's host API returns.  The absorb and
+# the re-lock return only carried state, so theirs are the batch functions
+# themselves.
 # ---------------------------------------------------------------------------
 
 
@@ -486,12 +490,24 @@ class MultiStreamMonitor:
         """This rank's rows of global frames, staged on its device."""
         return ingest_frames(self._own(frames, dim), self.dtype, self.device)
 
+    def _global(self, tree):
+        """A named tuple of this rank's per-stream outputs made global
+        (one ``all_gather``; as it is without a mesh)."""
+        if self.mesh is None:
+            return tree
+        return type(tree)(*gather_rows(self.mesh, tree))
+
+    def _global_result(self, res, dim: int = 0):
+        """A step or scan result with its per-stream outputs made global;
+        its state stays this rank's rows."""
+        if self.mesh is None:
+            return res
+        return _gather_result(self.mesh, "streams", res, dim)
+
     def _locate(self, dev) -> BatchedLocate:
         self.locates += dev.shape[0]
-        if self.mesh is None:
-            return locate_streams(dev, self.fps, self.cfg.calibration)
-        return make_sharded_locate(self.mesh, self.fps,
-                                   self.cfg.calibration)(dev)
+        return self._global(locate_streams(dev, self.fps,
+                                           self.cfg.calibration))
 
     def _warm_start(self, dev):
         self.streaming_starts += 1
@@ -580,30 +596,18 @@ class MultiStreamMonitor:
             self.stale_rows += int(np.asarray(stale).sum())
         initialized = not self._needs_init
         if self.spec.method == "flow":
-            if self.mesh is None:
-                res, self._cache = monitor_step_streams_cached(
-                    self._states, self._cache, dev, self.spec, self.coeffs,
-                    self.min_dist, self.measure_cfg, initialized=initialized,
-                    cache_valid=self._cache is not None)
-            else:
-                res, self._cache = make_sharded_monitor_step_cached(
-                    self.mesh, self.spec, self.coeffs, self.min_dist,
-                    self.measure_cfg, initialized=initialized,
-                    cache_valid=self._cache is not None)(
-                        self._states, self._cache, dev)
+            res, self._cache = monitor_step_streams_cached(
+                self._states, self._cache, dev, self.spec, self.coeffs,
+                self.min_dist, self.measure_cfg, initialized=initialized,
+                cache_valid=self._cache is not None)
             self._states = res.state
         else:
-            if self.mesh is None:
-                res = monitor_step_streams(self.states, dev, self.spec,
-                                           self.coeffs, self.min_dist,
-                                           self.measure_cfg,
-                                           initialized=initialized)
-            else:
-                res = make_sharded_monitor_step(
-                    self.mesh, self.spec, self.coeffs, self.min_dist,
-                    self.measure_cfg, initialized=initialized)(
-                        self.states, dev)
+            res = monitor_step_streams(self.states, dev, self.spec,
+                                       self.coeffs, self.min_dist,
+                                       self.measure_cfg,
+                                       initialized=initialized)
             self.states = res.state
+        res = self._global_result(res)
         self._needs_init = False
         self._streaming_step(dev)
         return res
@@ -619,21 +623,12 @@ class MultiStreamMonitor:
         self.streaming_absorbed += 1
         cal = self.cfg.calibration
         if self._stream_tick % self.cfg.streaming_interval:
-            if self.mesh is None:
-                self._streaming = absorb_streams(self._streaming, dev, cal)
-            else:
-                self._streaming = make_sharded_absorb(self.mesh, cal)(
-                    self._streaming, dev)
+            self._streaming = absorb_streams(self._streaming, dev, cal)
             return
-        if self.mesh is None:
-            self._streaming, loc = update_streams(
-                self._streaming, dev, self.fps, cal,
-                coarse=self.streaming_coarse)
-        else:
-            self._streaming, loc = make_sharded_update(
-                self.mesh, self.fps, cal, coarse=self.streaming_coarse)(
-                    self._streaming, dev)
-        self._maybe_relock(loc, dev)
+        self._streaming, loc = update_streams(
+            self._streaming, dev, self.fps, cal,
+            coarse=self.streaming_coarse)
+        self._maybe_relock(self._global(loc), dev)
 
     def _maybe_relock(self, loc, dev) -> None:
         """The host's drift decision and the batched masked re-lock (one
@@ -667,12 +662,8 @@ class MultiStreamMonitor:
         new_rois = np.stack([x2, y2, w, h], axis=1).astype(np.int32)
         # The property setter also drops the carried LK cache (re-locked
         # streams re-cropped prev from the current frame).
-        if self.mesh is None:
-            self.states = relock_streams(self._states, dev, new_rois, apply,
-                                         self.spec)
-        else:
-            self.states = make_sharded_relock(self.mesh, self.spec)(
-                self._states, dev, self._own(new_rois), self._own(apply))
+        self.states = relock_streams(self._states, dev, self._own(new_rois),
+                                     self._own(apply), self.spec)
         self._rois[apply] = new_rois[apply]
         self.relocks += int(apply.sum())
 
@@ -685,15 +676,10 @@ class MultiStreamMonitor:
         assert self.states is not None, "calibrate() first"
         dev = self._ingest(frames, dim=1)
         initialized = not self._needs_init
-        if self.mesh is None:
-            res = monitor_scan_streams(self.states, dev, self.spec,
-                                       self.coeffs, self.min_dist,
-                                       self.measure_cfg,
-                                       initialized=initialized)
-        else:
-            res = make_sharded_monitor_scan(
-                self.mesh, self.spec, self.coeffs, self.min_dist,
-                self.measure_cfg, initialized=initialized)(self.states, dev)
+        res = monitor_scan_streams(self.states, dev, self.spec, self.coeffs,
+                                   self.min_dist, self.measure_cfg,
+                                   initialized=initialized)
         self.states = res.state
+        res = self._global_result(res, dim=1)
         self._needs_init = False
         return res

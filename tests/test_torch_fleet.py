@@ -413,8 +413,8 @@ def test_fleet_step_work_does_not_grow_with_streams():
 
 
 def test_one_rank_mesh_steps_as_no_mesh():
-    # A fleet on a one-rank gloo mesh takes the sharded branches (its
-    # rows are all the streams) and steps as the fleet without a mesh.
+    # A fleet on a one-rank gloo mesh (its rows are all the streams)
+    # gathers its results and steps as the fleet without a mesh.
     clips = _stream_clips(2, 40, method="flow")
     tcfg = interop.config_from_reference(FLOW_CFG)
     rows = {}

@@ -11,9 +11,13 @@ Sizes and tolerances are ``tests/test_parallel.py``'s:
   ``evm.locate`` and of the JAX ``locate_tsharded`` (on the 8-device CPU
   mesh of ``tests/conftest.py``), and a heatmap within 1 (the sums over T
   reassociate across ranks);
+- the W-sharded locate also has the bbox and ``thresh > 0`` of the JAX
+  ``locate_wsharded`` (on that mesh), and a heatmap within 1 of it;
 - the sharded fleet's ``step``, ``step_many``, subset recalibration and
   streaming re-lock equal the unsharded port fleet's bit for bit, and a
-  step sends one collective: the gather of its per-stream results.
+  step sends one collective: the gather of its per-stream results;
+- each ``make_sharded_*`` factory on a rank's rows gives the batch
+  function's global outputs and rows of state bit for bit.
 
 Each case spawns its ranks once per module (``run_ranks``); the rank
 functions live here, at module level, and this module imports JAX only
@@ -33,10 +37,10 @@ from respmon_tpu_torch.io.synthetic import breathing_clip
 from respmon_tpu_torch.ops.pyramid import pyr_down, pyramid_shapes
 from respmon_tpu_torch.parallel import spatial, streams, temporal
 from respmon_tpu_torch.parallel.dryrun import dryrun_multichip
-from respmon_tpu_torch.parallel.launch import run_ranks
+from respmon_tpu_torch.parallel.launch import run_ranks, single_rank
 from respmon_tpu_torch.parallel.mesh import (make_mesh, replicated,
                                              stream_sharding)
-from respmon_tpu_torch.pipeline import evm
+from respmon_tpu_torch.pipeline import evm, motion
 
 torch.set_num_threads(1)
 
@@ -181,9 +185,92 @@ def fleet_scenario(mesh, device):
     return out
 
 
+def factory_scenario(mesh, device):
+    """Each ``make_sharded_*`` factory on this rank's rows (``mesh=None``:
+    the batch function it wraps, on every row): a locate, a step, two
+    cached steps, a scan, an absorb, an update and a masked re-lock.
+    Returns the global outputs and the gathered state."""
+    flow = MonitorConfig(motion_extraction_method="flow", calibration=CAL)
+    clips = torch.from_numpy(_stream_clips(S, 44, method="flow",
+                                           bpms=[15.0, 18.0, 21.0, 24.0]))
+    mon = streams.MultiStreamMonitor(flow, None, (H, W), FPS, device=device)
+    mon.calibrate(clips[:, :32])
+    args = (mon.spec, mon.coeffs, mon.min_dist, mon.measure_cfg)
+    if mesh is None:
+        def own(x, dim=0):
+            return x
+
+        def full(tree):
+            return list(tree)
+        locate = streams.locate_streams(clips[:, :32], FPS, CAL)
+        step = streams.monitor_step_streams
+        cached = streams.monitor_step_streams_cached
+        scan = streams.monitor_scan_streams
+        absorb = streams.absorb_streams
+        update = streams.update_streams
+        relock = streams.relock_streams
+    else:
+        def own(x, dim=0):
+            if isinstance(x, tuple):
+                return streams.shard_streams(x, mesh)
+            return x[(slice(None),) * dim + (stream_sharding(mesh, S),)]
+
+        def full(tree):
+            return streams.gather_rows(mesh, tree)
+        locate = streams.make_sharded_locate(mesh, FPS, CAL)(
+            streams.shard_streams(clips[:, :32], mesh))
+
+        def step(st, fr, *a):
+            return streams.make_sharded_monitor_step(mesh, *a)(st, fr)
+
+        def cached(st, c, fr, *a, cache_valid):
+            return streams.make_sharded_monitor_step_cached(
+                mesh, *a, cache_valid=cache_valid)(st, c, fr)
+
+        def scan(st, fr, *a):
+            return streams.make_sharded_monitor_scan(mesh, *a)(st, fr)
+
+        def absorb(ss, fr, cal):
+            return streams.make_sharded_absorb(mesh, cal)(ss, fr)
+
+        def update(ss, fr, fps, cal):
+            return streams.make_sharded_update(mesh, fps, cal)(ss, fr)
+
+        def relock(st, fr, rois, apply, spec):
+            return streams.make_sharded_relock(mesh, spec)(st, fr, rois,
+                                                           apply)
+    out = {"locate": np.asarray(torch.cat([locate.found[:, None].int(),
+                                           locate.boxes], 1))}
+    r = step(own(mon.states), own(clips[:, 33]), *args)
+    rows = [_row(r)]
+    cache = own(streams.init_fleet_cache(mon.spec, S, device=device))
+    for f, valid in ((34, False), (35, True)):
+        r, cache = cached(r.state, cache, own(clips[:, f]), *args,
+                          cache_valid=valid)
+        rows.append(_row(r))
+    out["rows"] = np.stack(rows)
+    r = scan(r.state, own(clips[:, 36:39].transpose(0, 1), dim=1), *args)
+    out["scan"] = np.stack([r.samples.numpy(), r.bpm.numpy(),
+                            r.has_bpm.numpy().astype(float)])
+    rings = own(streams.init_fleet_streaming_from_buffers(clips[:, :32],
+                                                          CAL))
+    rings = absorb(rings, own(clips[:, 39]), CAL)
+    rings, loc = update(rings, own(clips[:, 40]), FPS, CAL)
+    out["streaming_locate"] = [np.asarray(f) for f in loc]
+    out["rings"] = [np.asarray(f) for f in full(rings.levels)]
+    boxes = locate.boxes.numpy()
+    new_rois = np.stack([np.minimum(boxes[:, 0] + 2, W - boxes[:, 2]),
+                         boxes[:, 1], boxes[:, 2], boxes[:, 3]], 1)
+    apply = np.asarray([True, False, True, False])
+    st = relock(r.state, own(clips[:, 41]), own(new_rois.astype(np.int32)),
+                own(apply), mon.spec)
+    out["states"] = [np.asarray(f) for f in full(st)]
+    return out
+
+
 def fleet_rank(device):
-    return fleet_scenario(make_mesh(axis_names=("streams",), device=device),
-                          device)
+    mesh = make_mesh(axis_names=("streams",), device=device)
+    return fleet_scenario(mesh, device), factory_scenario(mesh, device)
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +295,11 @@ def unsharded_fleet():
 
 
 @pytest.fixture(scope="module")
+def unsharded_factories():
+    return factory_scenario(None, "cpu")
+
+
+@pytest.fixture(scope="module")
 def jax_tsharded():
     import jax
     import jax.numpy as jnp
@@ -223,6 +315,28 @@ def jax_tsharded():
     return {t: {k: np.asarray(v) for k, v in jlocate(
         jnp.asarray(clip[:t]), mesh, FPS, jcal)._asdict().items()}
         for t in T_LENGTHS}
+
+
+@pytest.fixture(scope="module")
+def jax_wsharded():
+    import jax
+    import jax.numpy as jnp
+
+    from respmon_tpu.config import CalibrationConfig as JCal
+    from respmon_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from respmon_tpu.parallel.spatial import locate_wsharded as jlocate
+
+    mesh = jmake_mesh(axis_names=("space",))
+    assert len(jax.devices()) == 8
+    out = {}
+    for case in W_CASES:
+        vid, cfg = _w_clip(*case)
+        jcal = JCal(buffer_length=cfg.buffer_length,
+                    pyramid_levels=cfg.pyramid_levels,
+                    skip_levels_at_top=cfg.skip_levels_at_top)
+        out[case] = {k: np.asarray(v) for k, v in jlocate(
+            jnp.asarray(vid), mesh, FPS, jcal)._asdict().items()}
+    return out
 
 
 def _box(r):
@@ -258,6 +372,19 @@ def test_locate_wsharded_bit_identical_to_locate(ranks, n, case):
         got = r["w"][case]
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("case", W_CASES)
+def test_locate_wsharded_matches_jax(ranks, jax_wsharded, n, case):
+    # raw_heat_u8 is left out: it normalises the T-mean of DC-free bands,
+    # rounding noise whose bits follow each package's summation order.
+    want = jax_wsharded[case]
+    for got in (r["w"][case] for r in ranks(locates_rank, n)):
+        assert _box(got) == _box(want)
+        assert np.abs(got["heatmap_u8"].astype(np.int32)
+                      - want["heatmap_u8"].astype(np.int32)).max() <= 1
+        np.testing.assert_array_equal(got["thresh"] > 0, want["thresh"] > 0)
 
 
 @pytest.mark.parametrize("n", RANKS)
@@ -297,7 +424,7 @@ def test_ranks_load_no_jax(ranks, n):
 @pytest.mark.parametrize("n", RANKS)
 def test_sharded_fleet_equals_unsharded(ranks, unsharded_fleet, n):
     want = unsharded_fleet
-    for got in ranks(fleet_rank, n):
+    for got, _ in ranks(fleet_rank, n):
         for key in ("boxes", "batch", "recal_boxes", "rows", "stream_rows",
                     "rois"):
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
@@ -311,9 +438,30 @@ def test_sharded_fleet_equals_unsharded(ranks, unsharded_fleet, n):
 def test_sharded_fleet_step_gathers_once(ranks, n):
     # The counterpart of the JAX fleet's collective-free step: the one
     # collective is the gather of the per-stream results.
-    for got in ranks(fleet_rank, n):
+    for got, _ in ranks(fleet_rank, n):
         assert got["step_collectives"] == {"all_gather": 1}
         assert got["absorb_collectives"] == {"all_gather": 1}
+
+
+@pytest.mark.parametrize("n", RANKS)
+def test_sharded_factories_equal_batch_functions(ranks, unsharded_factories,
+                                                 n):
+    want = unsharded_factories
+    for _, got in ranks(fleet_rank, n):
+        for key in ("locate", "rows", "scan"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        for key in ("streaming_locate", "rings", "states"):
+            for a, b in zip(got[key], want[key]):
+                np.testing.assert_array_equal(a, b, err_msg=key)
+
+
+def test_unsharded_factory_scenario_relocks_the_masked_streams(
+        unsharded_factories):
+    roi = unsharded_factories["states"][motion.MeasureState._fields.index(
+        "roi")]
+    boxes = unsharded_factories["locate"][:, 1:]
+    moved = roi[:, 0] != boxes[:, 0]
+    assert moved.tolist() == [True, False, True, False]
 
 
 def test_unsharded_fleet_scenario_recalibrates_and_relocks(
@@ -334,6 +482,18 @@ def test_dryrun_multichip():
 def test_make_mesh_raises_without_a_process_group():
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(device="cpu")
+
+
+def test_make_mesh_is_one_axis_over_every_rank():
+    with single_rank("gloo"):
+        mesh = make_mesh(axis_names=("space",), device="cpu")
+        assert mesh.shape == {"space": 1} and mesh.index("space") == 0
+        assert make_mesh((1,), device="cpu").shape == {"streams": 1}
+        with pytest.raises(KeyError, match="space"):
+            mesh.index("time")
+        for sizes, names in (((1, 1), ("a", "b")), ((2,), ("streams",))):
+            with pytest.raises(ValueError, match="1-D"):
+                make_mesh(sizes, names, device="cpu")
 
 
 def test_stream_sharding_rows():

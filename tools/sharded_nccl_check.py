@@ -16,9 +16,10 @@ BPM, 128 calibration frames) every rank checks:
   installed, 3 steps, a BPM among them) gives the unsharded fleet's
   samples, BPMs, has_bpm and errors bit for bit, with one gather a step.
 
-Prints one JSON line per rank (the checks, the collectives, the times on
-the host clock; one call each, no warm-up beyond one untimed call) and
-exits 1 unless every check held on every rank.  ``--backend gloo
+Prints the cards' name and power limit (``nvidia-smi``), then one JSON
+line per rank (the checks, the collectives, the times on the host clock;
+one call each, no warm-up beyond one untimed call) and exits 1 unless
+every check held on every rank.  ``--backend gloo
 --device cpu --size 120x160`` rehearses it on the CPU.  Times here are not
 a scaling measurement: the paths are small for N cards.
 """
@@ -28,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -161,6 +163,12 @@ def main() -> int:
     args = ap.parse_args()
     n = args.ranks or torch.cuda.device_count()
     size = tuple(int(v) for v in args.size.split("x"))
+    if args.device == "cuda":
+        # The cards' name and power limit, as chip_smoke.py prints them.
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip(), flush=True)
     results = run_ranks(check_rank, n, args.backend, args.device,
                         args=(size,))
     for rank, out in enumerate(results):
