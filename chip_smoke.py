@@ -38,8 +38,13 @@ fleet saved mid-run and restored on the card go on bit for bit as the
 uninterrupted ones.  The sharded paths in a one-rank NCCL process group
 (``phase_sharded``): the T-sharded locate (K1 on its shard) and the
 W-sharded locate of the 640x480 buffer against ``locate``, and the
-stream-sharded fleet against the unsharded one.  Each phase prints one
-JSON line; then each phase's seconds, the kernel table, the card's name
+stream-sharded fleet against the unsharded one.  The auxiliary modules
+(``phase_aux``: the dtype converters, ``detect_peaks``, the wavelets and
+the FFT diagnostics at the sizes their users meet, against the port's CPU
+results), and the port's nine demos run in this process on the card
+(``phase_examples``: K1 in the locating, flow and fleet demos, the 1-D
+demos and the locating demo against their CPU runs).  Each phase prints
+one JSON line; then each phase's seconds, the kernel table, the card's name
 and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits 1.
@@ -2549,6 +2554,218 @@ def phase_sharded(frames, fleet_host, fleet_rows, cfg=None, device=None,
     return launches
 
 
+# The detect_peaks cases of the JAX package's tests (mpd, edge), on rings of
+# MeasureConfig().buffer_length samples.
+PEAK_CASES = ((1, "rising"), (5, "rising"), (3, None), (4, "both"))
+AUX_RING = 128
+
+
+def phase_aux(dev, cal_u8):
+    """The auxiliary modules on the card at the sizes their users meet,
+    each against the port's CPU result on the same input: ``bgr_to_gray``
+    of a 640x480 and a 1080p BGR frame (bit-equal, and its bytes widened
+    equal to ``io/native.bgr_to_gray_f32``'s), ``pixel_sum_series`` of the
+    640x480 u8 calibration buffer ``cal_u8`` (exact against numpy's int64
+    sums), ``normalize`` and ``float_to_int8`` of a 640x480 float32 frame
+    (bit-equal), ``detect_peaks`` on 128-sample rings in the JAX tests'
+    (mpd, edge) cases (equal indices), ``wavelet_filter(iterations=5)``
+    and ``wavelet_decompose`` of a 256-sample motion trace (within 1e-5
+    relative) and ``freq_from_fft`` of it (within 1e-4 Hz).  Each
+    reading's ms: CUDA events, median of 10."""
+    import numpy as np
+    import torch
+
+    from respmon_tpu_torch.io import native
+    from respmon_tpu_torch.io.synthetic import motion_trace
+    from respmon_tpu_torch.ops import dtype, wavelets
+    from respmon_tpu_torch.ops.detect_peaks import detect_peaks
+    from respmon_tpu_torch.utils import diagnostics
+
+    rng = np.random.default_rng(10)
+    ms, errors = {}, {}
+
+    def run(name, fn, *host):
+        """(the card's result, the CPU's) of ``fn`` on the same host
+        inputs; the card's call is timed into ``ms[name]``."""
+        on_card = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in host]
+        got = fn(*on_card)
+        ms[name] = cuda_ms(lambda: fn(*on_card), repeats=10)
+        want = fn(*(torch.from_numpy(np.ascontiguousarray(a))
+                    for a in host))
+        return got, want
+
+    for h, w in ((480, 640), (1080, 1920)):
+        bgr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        got, want = run(f"bgr_to_gray_{h}x{w}", dtype.bgr_to_gray, bgr)
+        got = got.cpu().numpy()
+        check(np.array_equal(got, want.numpy()),
+              f"bgr_to_gray {h}x{w} on the card equals the CPU's")
+        widened = (got.astype(np.float64) * (1.0 / 255.0)).astype(
+            np.float32)
+        check(np.array_equal(widened.view(np.uint32),
+                             native.bgr_to_gray_f32(bgr).view(np.uint32)),
+              f"bgr_to_gray {h}x{w} equals io/native's bytes")
+
+    got, want = run("pixel_sum_series_128x480x640_u8",
+                    diagnostics.pixel_sum_series, cal_u8)
+    sums = cal_u8.astype(np.int64).sum(axis=(1, 2))[1:-1]
+    check(np.array_equal(got.cpu().numpy(), sums - sums.min())
+          and np.array_equal(want.numpy(), sums - sums.min()),
+          "pixel_sum_series of the u8 buffer equals numpy's int64 sums")
+
+    frame = rng.uniform(-0.2, 1.3, (480, 640)).astype(np.float32)
+    for name, fn in (("normalize", dtype.normalize),
+                     ("float_to_int8", dtype.float_to_int8)):
+        got, want = run(f"{name}_480x640", fn, frame)
+        check(torch.equal(got.cpu(), want),
+              f"{name} 480x640 on the card equals the CPU's bit for bit")
+
+    rings = np.random.default_rng(0).standard_normal((5, AUX_RING))
+    peaks = {}
+    for mpd, edge in PEAK_CASES:
+        def call(x, mpd=mpd, edge=edge):
+            return [detect_peaks(r, mpd=mpd, edge=edge) for r in x]
+
+        got, want = run(f"detect_peaks_5_rings_mpd{mpd}_{edge}", call, rings)
+        for (gi, gm), (wi, wm) in zip(got, want):
+            check(torch.equal(gi.cpu(), wi) and torch.equal(gm.cpu(), wm),
+                  f"detect_peaks (mpd {mpd}, edge {edge}) on the card "
+                  "equals the CPU's")
+        peaks[f"{mpd},{edge}"] = int(sum(int(m.sum()) for _, m in want))
+
+    _, trace = motion_trace(num_samples=256, fps=FPS, bpm=18.0, noise=0.3)
+    trace = trace.astype(np.float32)
+
+    def rel(g, w):
+        return float((g.cpu() - w).abs().max() / w.abs().max())
+
+    got, want = run("wavelet_filter_256", lambda x: wavelets.wavelet_filter(
+        x, iterations=5), trace)
+    errors["wavelet_filter_rel"] = rel(got, want)
+    got, want = run("wavelet_decompose_256",
+                    lambda x: wavelets.wavelet_decompose(x, 5), trace)
+    errors["wavelet_decompose_rel"] = max(
+        rel(g, w) for g, w in zip(got[0] + got[1], want[0] + want[1]))
+    check(got[0][-1].dtype == torch.float32, "wavelets keep float32")
+    got, want = run("freq_from_fft_256",
+                    lambda x: diagnostics.freq_from_fft(x, FPS), trace)
+    errors["freq_from_fft_hz"] = abs(float(got) - float(want))
+    check(errors["wavelet_filter_rel"] <= 1e-5
+          and errors["wavelet_decompose_rel"] <= 1e-5
+          and errors["freq_from_fft_hz"] <= 1e-4,
+          f"wavelets within 1e-5 relative, freq_from_fft within 1e-4 Hz "
+          f"of the CPU's: {errors}")
+    emit({"phase": "aux", "ms": ms, "errors": errors,
+          "peaks_found": peaks, "freq_from_fft_hz": float(got)})
+
+
+# The port's demos as phase_examples runs them: each its defaults, but the
+# fleet cut from 8 x 120 frames (55 fleet steps) to 8 x 80 (15), and its
+# feeder run to the tests' 2 x 70.
+EXAMPLES = (("signal_measurement_demo", ()), ("filter_explorer", ()),
+            ("gaussian_explorer", ()), ("wavelet_demo", ()),
+            ("temporal_analysis_demo", ()), ("multiaxis_demo", ()),
+            ("locating_demo", ()), ("flow_demo", ()),
+            ("multistream_demo", ("--streams", "8", "--frames", "80")),
+            ("multistream_demo", ("--streams", "2", "--frames", "70",
+                                  "--feeder")))
+# Compared with a --device cpu run of the same demo in this process.
+EXAMPLES_VS_CPU = ("signal_measurement_demo", "filter_explorer",
+                   "gaussian_explorer", "wavelet_demo",
+                   "temporal_analysis_demo", "multiaxis_demo",
+                   "locating_demo")
+
+
+def run_demo(name: str, args=(), device=None):
+    """(printed output, seconds) of the port's demo ``name`` run in this
+    process, as ``python -m respmon_tpu_torch.examples.<name> *args``
+    (with ``--device`` when ``device`` is given)."""
+    import contextlib
+    import io
+    import runpy
+
+    argv = [name, *args] + (["--device", device] if device else [])
+    out = io.StringIO()
+    saved, sys.argv = sys.argv, argv
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(f"respmon_tpu_torch.examples.{name}",
+                             run_name="__main__")
+    finally:
+        sys.argv = saved
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def _planned_demo_launches(name: str, args) -> dict:
+    """The stencil kernels' launches that a K1 demo's run makes: its
+    locates and, in the locating demo, one streaming absorb a frame (48
+    frames unless ``--frames`` says otherwise, as in the demo)."""
+    def arg(flag, default):
+        return int(args[args.index(flag) + 1]) if flag in args else default
+
+    if name == "locating_demo":      # (32, 60, 80) L4/S1, then T = 1
+        geometry, calls = (60, 80, 4, 1), 1 + arg("--frames", 48)
+    elif name == "flow_demo":        # (64, 120, 160) L6/S2
+        geometry, calls = (120, 160, 6, 2), 1
+    else:                            # a (64, 60, 80) L4/S1 locate a stream
+        geometry, calls = (60, 80, 4, 1), arg("--streams", 8)
+    return {k: n * calls
+            for k, n in planned_launches(*geometry).items()}
+
+
+def phase_examples(device=None):
+    """The port's nine demos (``EXAMPLES``) run in this process on the card
+    (``device=None``, as a user runs them), each read by its printed
+    lines: each exits normally and prints; the locating demo's batch
+    locate finds the patch, the flow demo prints an ROI, the fleet demo
+    calibrates every stream; the 1-D demos and the locating demo print
+    what their --device cpu runs print (``examples.mismatches``).  K1's
+    launches are read around each K1 demo and must be what its locates
+    and absorbs plan.  Returns the three K1 demos' launches.
+    (``device="cpu"`` rehearses it on the CPU.)"""
+    from respmon_tpu_torch.examples import mismatches, printed_lines
+
+    rows, launches = [], {}
+    for name, args in EXAMPLES:
+        reset_launches()
+        out, seconds = run_demo(name, args, device)
+        counts = read_launches()
+        check(out.strip() != "", f"{name} printed its lines")
+        row = {"demo": name, "args": list(args), "seconds": seconds,
+               "numbers": [nums for _, nums in printed_lines(out)]}
+        if name in EXAMPLES_VS_CPU:
+            cpu_out, row["cpu_seconds"] = run_demo(name, args, "cpu")
+            wrong = mismatches(name, out, cpu_out)
+            check(not wrong, f"{name} on the card prints what it prints on "
+                  f"the CPU: {wrong}")
+        if name in ("locating_demo", "flow_demo", "multistream_demo"):
+            planned = _planned_demo_launches(name, args)
+            got = {k: counts[k] for k in planned}
+            check(got == planned and not any(
+                v for k, v in counts.items() if k not in planned),
+                f"{name} launched K1 as its locates plan ({planned}): "
+                f"{counts}")
+            row["launches"] = counts
+            launches.setdefault(name, counts)
+        if name == "locating_demo":
+            check("batch locate:     found=True" in out,
+                  "the locating demo's batch locate found the patch")
+        if name == "flow_demo":
+            check(out.startswith("ROI: (") and "ROI: None" not in out,
+                  f"the flow demo found an ROI: {out.splitlines()[0]}")
+        if name == "multistream_demo":
+            n = int(args[args.index("--streams") + 1])
+            check(f"calibrated: {[True] * n}" in out,
+                  f"every stream of the fleet demo calibrated: {out}")
+        rows.append(row)
+        emit({"phase": "examples", **row})
+    return {"example_locating_60x80": launches["locating_demo"],
+            "example_flow_120x160": launches["flow_demo"],
+            "example_multistream_60x80": launches["multistream_demo"]}
+
+
 def main() -> int:
     import torch
 
@@ -2588,6 +2805,7 @@ def main() -> int:
     # measured), for the script's time.
     timed(phase_flow_profile, frames[:PROFILE_FRAMES])
     host_frames = frames.cpu().numpy()
+    cal_u8 = host_frames[1:129].copy()   # the calibration buffer
     del frames
     # The live monitor over the clip's first MONITOR_FRAMES frames (80
     # measured), and the fed one over its first 60.
@@ -2618,6 +2836,9 @@ def main() -> int:
     fleet_1080p_launches = timed(phase_fleet_1080p, roi_1080p, clip_1080p)
     del clip_1080p
     kernels += timed(phase_fleet_kernels, dev)
+    timed(phase_aux, dev, cal_u8)
+    del cal_u8
+    example_launches = timed(phase_examples)
 
     # Each path was driven with every count at 0 just before it and read
     # just after.  ``launches`` is the count on the kernel's own path: the
@@ -2645,7 +2866,8 @@ def main() -> int:
              "fleet_1080p_streaming": fleet_1080p_launches,
              "tsharded_locate_640x480": sharded_launches["tsharded"],
              "wsharded_locate_640x480": sharded_launches["wsharded"],
-             "fleet_sharded_640x480_flow": sharded_launches["fleet"]}
+             "fleet_sharded_640x480_flow": sharded_launches["fleet"],
+             **example_launches}
     own_path = {"pyr_down_levels_d2": "flow_640x480",
                 "pyr_down_levels_d1": "locate_1080p",
                 "pyr_tail": "flow_640x480",

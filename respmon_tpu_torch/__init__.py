@@ -3,14 +3,20 @@
 Same layout and public functions as the JAX package (``ops/...``,
 ``pipeline/...``, ``runtime/...``), tested against it on the CPU and run
 on an NVIDIA Hopper GPU, where the Pallas pyramid kernels are hand-written
-CUDA (``csrc/pyramid.cu``, ``csrc/band_mm.cu``).  Covered so far: the live
+CUDA (``csrc/pyramid.cu``, ``csrc/band_mm.cu``).  Covered: the live
 single-stream monitor ``runtime.RespiratoryMonitor`` with its host side
 (``io/``, ``viz/``, ``utils/bench``) and CLI (``python -m
 respmon_tpu_torch``), the whole-clip path ``pipeline.scan.process_clip``
 / ``process_clip_auto``, in average and flow mode, the multi-stream fleet
 ``parallel.streams.MultiStreamMonitor``, checkpoint / resume
-(``runtime.checkpoint``) and the sharded paths over ``torch.distributed``
-(``parallel/{mesh,launch,temporal,spatial}``).
+(``runtime.checkpoint``), the sharded paths over ``torch.distributed``
+(``parallel/{mesh,launch,temporal,spatial}``), the auxiliary modules
+(``ops/dtype``'s converters, ``ops/detect_peaks``, ``ops/wavelets``,
+``utils/diagnostics``, ``version``) and the JAX package's nine demos
+(``examples/``, ``python -m respmon_tpu_torch.examples.<name>``).  Left
+out on purpose: ``gaussfit.jacobian_fd`` (never reached in production)
+and LK's ``"onehot"`` / ``"onehot1"`` / ``"patches"`` sampling modes
+(gather strategies for the TPU, equal to ``"slices"``).
 
 Precision policy (the port's counterpart of the JAX package's
 ``Precision.HIGHEST`` rule): float32 matrix products and convolutions run
@@ -20,6 +26,10 @@ moves bbox edges.  This is the one place the policy is set.
 """
 
 import torch
+
+from respmon_tpu_torch.version import __version__
+
+__all__ = ["__version__"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

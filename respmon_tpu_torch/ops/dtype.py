@@ -2,7 +2,9 @@
 
 Port of ``respmon_tpu/ops/dtype.py``: ``float_to_uint8`` truncates and wraps
 mod 256 like a store into a numpy uint8 array; ``uint8_to_float`` returns
-the exact f32 image of the reference's f64 ``b * (1/255)`` chain.
+the exact f32 image of the reference's f64 ``b * (1/255)`` chain;
+``float_to_int8``, ``normalize`` and ``bgr_to_gray`` are the reference's
+other converters.
 """
 
 from __future__ import annotations
@@ -60,3 +62,32 @@ def ingest_frames(frames, dtype=torch.float32, device=None) -> torch.Tensor:
                 f"host-side for dtype={dtype} (ops/dtype.uint8_to_float)")
         return frames.to(device).contiguous()
     return frames.to(device=device, dtype=dtype).contiguous()
+
+
+def float_to_int8(img: torch.Tensor) -> torch.Tensor:
+    """Reference transforms.py:32-35: note it also stores into *uint8*.
+    The values are negative before the wrap, so the wrap is a floor mod
+    (``torch.remainder``, as ``jnp.mod``), not ``torch.fmod``."""
+    scaled = torch.trunc(img.to(torch.float32) * 255.0) - 127.0
+    wrapped = torch.remainder(scaled.to(torch.int32), 256)
+    return wrapped.to(torch.uint8)
+
+
+def normalize(data: torch.Tensor) -> torch.Tensor:
+    """Min-max normalize (reference ``nomrmalize`` [sic],
+    transforms.py:16-17).  A constant input gives NaN, as in the JAX
+    package."""
+    lo = data.min()
+    hi = data.max()
+    return (data - lo) / (hi - lo)
+
+
+def bgr_to_gray(frame: torch.Tensor) -> torch.Tensor:
+    """BGR uint8 (..., 3) -> grayscale uint8, cv2.cvtColor COLOR_BGR2GRAY
+    bit for bit (reference base.py:230): cv2's fixed-point BT.601 formula
+    y = (9798 R + 19235 G + 3735 B + 2^14) >> 15 in int32, the integer
+    arithmetic of ``io/native.bgr_to_gray_f32``'s C++ path."""
+    f = frame.to(torch.int32)
+    b, g, r = f[..., 0], f[..., 1], f[..., 2]
+    y = (9798 * r + 19235 * g + 3735 * b + 16384) >> 15
+    return y.to(torch.uint8)

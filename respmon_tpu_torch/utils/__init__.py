@@ -1,1 +1,2 @@
-"""Host-side helpers of the port (numpy only)."""
+"""Helpers of the port: bounding boxes and the tag timer on the host, and
+the FFT diagnostics."""

@@ -227,8 +227,14 @@ def test_main_prints_each_phase_seconds_within_the_budget():
                   "phase_fleet", "phase_fleet_feeder",
                   "phase_fleet_cross_check", "phase_fleet_streaming",
                   "phase_fleet_1080p", "phase_fleet_kernels",
-                  "phase_checkpoint", "phase_sharded"):
+                  "phase_checkpoint", "phase_sharded", "phase_aux",
+                  "phase_examples"):
         assert f"timed({phase}" in src
+    # The K1 demos' paths, read beside the others in the kernels line.
+    for path in ("example_locating_60x80", "example_flow_120x160",
+                 "example_multistream_60x80"):
+        assert f'"{path}"' in inspect.getsource(chip_smoke.phase_examples)
+    assert "**example_launches" in src
     assert '"phase_seconds"' in src and chip_smoke.TIME_BUDGET_S == 900
 
 
@@ -329,3 +335,67 @@ def test_checkpoint_and_sharded_phases_rehearse_on_the_cpu(
         FLEET_CFG.calibration.pyramid_levels - 1
         - FLEET_CFG.calibration.skip_levels_at_top)
     assert row["fleet_step_ms"]["n"] == steps
+
+
+# -- the auxiliary modules and the demos --------------------------------------
+
+def test_aux_phase_rehearses_on_the_cpu(monkeypatch):
+    # No CUDA events on the CPU: the stand-in timer makes one call.
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, **kw: (fn(), 0.0)[1])
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    cal_u8 = _u8_clip(10)
+    chip_smoke.phase_aux("cpu", cal_u8)
+    row = lines[-1]
+    assert row["phase"] == "aux"
+    assert {"bgr_to_gray_480x640", "bgr_to_gray_1080x1920",
+            "pixel_sum_series_128x480x640_u8", "normalize_480x640",
+            "float_to_int8_480x640", "wavelet_filter_256",
+            "wavelet_decompose_256", "freq_from_fft_256"} <= set(row["ms"])
+    assert len([k for k in row["ms"] if k.startswith("detect_peaks")]) == \
+        len(chip_smoke.PEAK_CASES)
+    assert all(n > 0 for n in row["peaks_found"].values())
+    assert row["errors"] == {"wavelet_filter_rel": 0.0,
+                             "wavelet_decompose_rel": 0.0,
+                             "freq_from_fft_hz": 0.0}
+    assert abs(row["freq_from_fft_hz"] - 0.3) < 0.01   # the trace's 18 BPM
+
+
+# The demos at the smoke tests' sizes (tests/test_examples_smoke.py).
+SMALL_EXAMPLES = (
+    ("signal_measurement_demo", ()), ("filter_explorer", ()),
+    ("gaussian_explorer", ()), ("wavelet_demo", ("--iterations", "2")),
+    ("temporal_analysis_demo", ("--frames", "64")),
+    ("multiaxis_demo", ("--samples", "60")),
+    ("locating_demo", ("--frames", "36")), ("flow_demo", ("--frames", "90")),
+    ("multistream_demo", ("--streams", "2", "--frames", "70")),
+    ("multistream_demo", ("--streams", "2", "--frames", "70", "--feeder")))
+
+
+def test_examples_phase_rehearses_on_the_cpu(planned_launches, monkeypatch):
+    lines = planned_launches
+    monkeypatch.setattr(chip_smoke, "EXAMPLES", SMALL_EXAMPLES)
+    launches = chip_smoke.phase_examples("cpu")
+    assert set(launches) == {"example_locating_60x80",
+                             "example_flow_120x160",
+                             "example_multistream_60x80"}
+    # One B a locate at these sizes: the locating demo's locate and its 36
+    # absorbs, the flow demo's locate, one locate a stream.
+    assert [launches[k]["pyr_tail"] for k in sorted(launches)] == [1, 37, 2]
+    rows = {(ln["demo"], tuple(ln["args"])): ln for ln in lines}
+    assert set(rows) == set(SMALL_EXAMPLES)
+    assert all(r["seconds"] > 0 and r["numbers"] for r in rows.values())
+    assert sum("cpu_seconds" in r for r in rows.values()) == \
+        len(chip_smoke.EXAMPLES_VS_CPU)
+    assert rows["locating_demo", ("--frames", "36")]["numbers"][0] == \
+        ["6", "21", "48", "26"]
+
+
+def test_examples_phase_fails_on_a_missing_launch(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "EXAMPLES",
+                        (("locating_demo", ("--frames", "33")),))
+    monkeypatch.setattr(chip_smoke, "emit", lambda row: None)
+    # On the CPU no kernel launches, and nothing counts a plan's launches.
+    with pytest.raises(RuntimeError, match="launched K1"):
+        chip_smoke.phase_examples("cpu")

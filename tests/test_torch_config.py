@@ -145,7 +145,9 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                  ("runtime", "fleet_feeder.py"), ("runtime", "checkpoint.py"),
                  ("parallel", "mesh.py"), ("parallel", "temporal.py"),
                  ("parallel", "spatial.py"), ("parallel", "launch.py"),
-                 ("parallel", "dryrun.py")):
+                 ("parallel", "dryrun.py"), ("examples", "flow_demo.py"),
+                 ("ops", "wavelets.py"), ("ops", "detect_peaks.py"),
+                 ("utils", "diagnostics.py"), ("version.py",)):
         assert os.path.join(REPO, "respmon_tpu_torch", *part) in paths
     for path in paths:
         with open(path) as fh:
@@ -158,7 +160,8 @@ def test_test_modules_with_rank_functions_import_no_jax_at_top():
     # inside their tests only (their ranks check sys.modules as well).
     pattern = re.compile(r"^(from|import)\s+(jax|jaxlib|respmon_tpu)(\.|\s|$)",
                          re.M)
-    for name in ("test_torch_parallel.py", "test_torch_checkpoint.py"):
+    for name in ("test_torch_parallel.py", "test_torch_checkpoint.py",
+                 "test_torch_examples.py"):
         with open(os.path.join(REPO, "tests", name)) as fh:
             hit = pattern.search(fh.read())
         assert hit is None, f"{name}: {hit.group(0)!r}"
@@ -173,7 +176,10 @@ def test_importing_every_port_module_loads_neither_jax_nor_the_jax_package():
     assert "respmon_tpu_torch.parallel.streams" in names
     assert "respmon_tpu_torch.runtime.fleet_feeder" in names
     for name in ("runtime.checkpoint", "parallel.mesh", "parallel.temporal",
-                 "parallel.spatial", "parallel.launch", "parallel.dryrun"):
+                 "parallel.spatial", "parallel.launch", "parallel.dryrun",
+                 "examples.flow_demo", "examples.multistream_demo",
+                 "ops.wavelets", "ops.detect_peaks", "utils.diagnostics",
+                 "version"):
         assert "respmon_tpu_torch." + name in names
     code = (
         "import importlib, sys\n"
