@@ -41,12 +41,17 @@ W-sharded locate of the 640x480 buffer against ``locate``, and the
 stream-sharded fleet against the unsharded one.  The auxiliary modules
 (``phase_aux``: the dtype converters, ``detect_peaks``, the wavelets and
 the FFT diagnostics at the sizes their users meet, against the port's CPU
-results), and the port's nine demos run in this process on the card
-(``phase_examples``: K1 in the locating, flow and fleet demos, the 1-D
-demos and the locating demo against their CPU runs).  Each phase prints
-one JSON line; then each phase's seconds, the kernel table, the card's name
-and power limit, and last
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
+results), the functions that completed the port's public surface
+(``phase_surface``: the single-stream ``measure_step_cached`` on the
+640x480 clip against ``measure_step``, ``measure_step``'s
+``initialized_hint``, ``filtfilt``, ``peak_indexes`` and
+``gaussian_fit_single`` against their CPU results, and the counterpart of
+``__graft_entry__.entry()``, ``respmon_tpu_torch.entry``, whose 64-frame
+120x160 ``locate`` runs K1), and the port's nine demos run in this process
+on the card (``phase_examples``: K1 in the locating, flow and fleet demos,
+the 1-D demos and the locating demo against their CPU runs).  Each phase
+prints one JSON line; then each phase's seconds, the kernel table, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits 1.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -2766,6 +2771,217 @@ def phase_examples(device=None):
             "example_multistream_60x80": launches["multistream_demo"]}
 
 
+# phase_surface: measured frames of the single-stream cached step, and the
+# BPM stage's peak-finding arguments (MeasureConfig at 10 fps).
+SURFACE_FRAMES = 20
+SURFACE_PEAKS = dict(min_dist=10, thres=0.3, max_peaks=32)
+
+
+def event_ms(fn):
+    """(result, ms) of one ``fn`` between two CUDA events, ending in the
+    end event's synchronise: the call's span, host stalls included."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _window_of(ring, coeffs, cfg):
+    """The first window with at least 3 points that ``estimate_bpm`` fits
+    on the host ``ring`` (its f32 Gaussian fit's inputs), as host arrays
+    (t, y, mask)."""
+    import torch
+
+    from respmon_tpu_torch.ops import gaussfit
+    from respmon_tpu_torch.pipeline import bpm
+
+    seen = []
+    fit = gaussfit.gaussian_fit_batch
+
+    def capture(t, y, mask, **kw):
+        seen.append((t, y, mask))
+        return fit(t, y, mask, **kw)
+
+    gaussfit.gaussian_fit_batch = capture
+    try:
+        bpm.estimate_bpm(*(torch.from_numpy(ring[k][None])
+                           for k in ("data", "t", "count")),
+                         coeffs, SURFACE_PEAKS["min_dist"], cfg)
+    finally:
+        gaussfit.gaussian_fit_batch = fit
+    t, y, mask = (a[0].numpy() for a in seen[0])
+    lane = int((mask.sum(axis=-1) >= 3).argmax())
+    check(mask[lane].sum() >= 3, "the monitor's ring has a window to fit")
+    return t[lane], y[lane], mask[lane]
+
+
+def phase_surface(frames, roi, ring, device=None):
+    """The functions that completed the port's public surface, on the card
+    at the sizes their users meet, each against its reference:
+
+    - the single-stream ``measure_step_cached`` over ``frames`` (measured
+      640x480 u8 frames) at the calibrated ``roi``, flow and average,
+      frame for frame bit-equal to ``measure_step`` on the card, hinted
+      (``initialized_hint=True`` after the first frame) or not; each step's
+      ms (CUDA events) beside the uncached step's, with and without the
+      hint;
+    - ``filtfilt`` (within 1e-5 of the CPU's) and ``peak_indexes`` (equal
+      indices and mask) of 128-sample rings;
+    - ``gaussian_fit_single`` in float32 and float64 on the first window
+      that the live monitor's (a) estimate fits on its ``ring``: the
+      decision equal to the CPU's, converged parameters within rtol 1e-4 /
+      atol 1e-6 (float32) and 1e-6 relative (float64);
+    - ``entry()``: its box equal to the CPU's, its K1 launches those one
+      (64,120,160) L6/S2 ``locate`` plans.
+
+    Every result is emitted before the checks.  Returns the entry's
+    launches.  (``device="cpu"`` rehearses it on the CPU.)"""
+    import numpy as np
+    import torch
+
+    from respmon_tpu_torch.config import MonitorConfig
+    from respmon_tpu_torch.entry import entry
+    from respmon_tpu_torch.io.synthetic import motion_trace
+    from respmon_tpu_torch.ops import filters, gaussfit, peaks
+    from respmon_tpu_torch.pipeline import motion
+
+    dev = torch.device(device or "cuda:0")
+    cpu = torch.device("cpu")
+    row, ms, checks = {"phase": "surface"}, {}, []
+    h, w = frames.shape[1:]
+
+    for method in ("flow", "average"):
+        cfg = MonitorConfig(motion_extraction_method=method)
+        spec = motion.MeasureSpec.for_roi(cfg, h, w, roi[2], roi[3], FPS)
+        cached = plain = hinted = motion.init_state(spec, roi, device=dev)
+        cache = motion.init_flow_cache(spec, device=dev)
+        times = {"cached_hinted": [], "uncached": [], "uncached_hinted": []}
+        equal = True
+        for i, frame in enumerate(frames):
+            frame = torch.from_numpy(frame).to(dev)
+            (cached, cache, s_c), t_c = event_ms(
+                lambda: motion.measure_step_cached(
+                    cached, cache, frame, spec, initialized_hint=i > 0,
+                    cache_valid=i > 0))
+            (plain, s_p), t_p = event_ms(
+                lambda: motion.measure_step(plain, frame, spec))
+            (hinted, s_h), t_h = event_ms(
+                lambda: motion.measure_step(hinted, frame, spec,
+                                            initialized_hint=i > 0))
+            for name, t in zip(times, (t_c, t_p, t_h)):
+                times[name].append(t)
+            equal &= bool(torch.equal(s_c, s_p) and torch.equal(s_h, s_p))
+        equal &= all(bool(torch.equal(a, b)) and bool(torch.equal(b, c))
+                     for a, b, c in zip(cached, plain, hinted))
+        checks.append((equal and cached.data.dim() == 1,
+                       f"the {method} cached step equals measure_step on "
+                       "the card bit for bit, frame for frame"))
+        checks.append((method == "average" or not bool(plain.error),
+                       f"the {method} steps raise no error"))
+        row[f"step_{method}_ms"] = {
+            name: {"first": v[0], "median": statistics.median(v[1:])}
+            for name, v in times.items()}
+
+    # filtfilt and peak_indexes on 128-sample rings.
+    rings = np.stack([motion_trace(num_samples=AUX_RING, fps=FPS, bpm=bpm,
+                                   noise=0.05, seed=k)[1]
+                      for k, bpm in enumerate((12.0, 15.0, 18.0, 21.0,
+                                               24.0))]).astype(np.float32)
+    coeffs = filters.design_butter_lowpass(0.5, FPS, 3)
+    host = torch.from_numpy(rings)
+    on_card = host.to(dev)
+    want = filters.filtfilt(coeffs, host)
+    got = filters.filtfilt(coeffs, on_card)
+    got_one = filters.filtfilt(coeffs, on_card[0])
+    ms["filtfilt_5x128"] = cuda_ms(lambda: filters.filtfilt(coeffs, on_card),
+                                   repeats=10)
+    ms["filtfilt_128"] = cuda_ms(lambda: filters.filtfilt(coeffs,
+                                                          on_card[0]),
+                                 repeats=10)
+    row["filtfilt_max_abs_err"] = max(
+        float((got.cpu() - want).abs().max()),
+        float((got_one.cpu() - want[0]).abs().max()))
+    checks.append((torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5)
+                   and torch.allclose(got_one.cpu(), want[0], rtol=1e-5,
+                                      atol=1e-5),
+                   "filtfilt on the card within 1e-5 of the CPU's"))
+    filtered = want.to(dev)
+    idx, mask = peaks.peak_indexes(filtered, **SURFACE_PEAKS)
+    want_idx, want_mask = peaks.peak_indexes(want, **SURFACE_PEAKS)
+    ms["peak_indexes_5x128"] = cuda_ms(
+        lambda: peaks.peak_indexes(filtered, **SURFACE_PEAKS), repeats=10)
+    ms["peak_indexes_128"] = cuda_ms(
+        lambda: peaks.peak_indexes(filtered[0], **SURFACE_PEAKS),
+        repeats=10)
+    one_idx, _ = peaks.peak_indexes(filtered[0], **SURFACE_PEAKS)
+    row["peaks_found"] = [int(m.sum()) for m in want_mask]
+    checks.append((torch.equal(idx.cpu(), want_idx)
+                   and torch.equal(mask.cpu(), want_mask)
+                   and torch.equal(one_idx.cpu(), want_idx[0])
+                   and min(row["peaks_found"]) > 0,
+                   "peak_indexes on the card equals the CPU's"))
+
+    # gaussian_fit_single on a window of the live monitor's ring.
+    mcfg = MonitorConfig().measure
+    t, y, m = _window_of(ring, filters.design_butter_lowpass(
+        0.5, FPS, mcfg.filter_order), mcfg)
+    row["window_points"] = int(m.sum())
+    for dtype, rtol, atol in ((torch.float32, 1e-4, 1e-6),
+                              (torch.float64, 1e-6, 1e-9)):
+        args = [torch.from_numpy(t).to(dtype), torch.from_numpy(y).to(dtype),
+                torch.from_numpy(m)]
+        name = f"gaussian_fit_single_{str(dtype)[6:]}"
+        fit_want = gaussfit.gaussian_fit_single(*args)
+        runs = [event_ms(lambda: gaussfit.gaussian_fit_single(
+            *(a.to(dev) for a in args))) for _ in range(3)]
+        ms[name] = statistics.median(r[1] for r in runs)
+        fit_got = runs[0][0]
+        params = [(float(getattr(fit_got, k)), float(getattr(fit_want, k)))
+                  for k in ("ampl", "center", "dev")]
+        row[name] = {"converged": bool(fit_got.converged),
+                     "cpu_converged": bool(fit_want.converged),
+                     "params": [g for g, _ in params],
+                     "cpu_params": [c for _, c in params]}
+        checks.append((bool(fit_got.converged) == bool(fit_want.converged)
+                       and (not bool(fit_want.converged) or all(
+                           abs(g - c) <= atol + rtol * abs(c)
+                           for g, c in params)),
+                       f"{name} on the card agrees with the CPU's"))
+
+    # entry(): K1 on the card, its box against the CPU's.
+    fn, args = entry(device)
+    reset_launches()
+    (found, *box, heat), ms["entry_locate_64x120x160"] = event_ms(
+        lambda: fn(*args))
+    launches = read_launches()
+    planned = planned_launches(120, 160, 6, 2)
+    cpu_fn, cpu_args = entry(cpu)
+    cpu_found, *cpu_box, cpu_heat = cpu_fn(*cpu_args)
+    ms["entry_locate_64x120x160"] = cuda_ms(lambda: fn(*args), repeats=10)
+    row.update(entry_box=[int(v) for v in box],
+               entry_cpu_box=[int(v) for v in cpu_box],
+               entry_found=bool(found), entry_launches=launches,
+               entry_heatmap_max_abs_diff=int(
+                   (heat.cpu().int() - cpu_heat.int()).abs().max()))
+    checks.append((bool(found) == bool(cpu_found) and bool(found)
+                   and row["entry_box"] == row["entry_cpu_box"],
+                   "entry() on the card finds the CPU's box"))
+    checks.append(({k: launches[k] for k in planned} == planned
+                   and not any(v for k, v in launches.items()
+                               if k not in planned),
+                   f"entry() launched K1 as one (64,120,160) locate plans "
+                   f"({planned}): {launches}"))
+    emit({**row, "ms": ms})
+    for ok, what in checks:
+        check(ok, what)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2806,11 +3022,14 @@ def main() -> int:
     timed(phase_flow_profile, frames[:PROFILE_FRAMES])
     host_frames = frames.cpu().numpy()
     cal_u8 = host_frames[1:129].copy()   # the calibration buffer
+    surface_frames = host_frames[130:130 + SURFACE_FRAMES].copy()
     del frames
     # The live monitor over the clip's first MONITOR_FRAMES frames (80
     # measured), and the fed one over its first 60.
     monitor_launches, average_mon = timed(phase_monitor,
                                           host_frames[:MONITOR_FRAMES])
+    surface_ring = {k: getattr(average_mon._measure_state, k).cpu().numpy()
+                    for k in ("data", "t", "count")}
     timed(phase_feeder, host_frames, average_mon)
     ckpt_frames = host_frames[:1 + 128 + 1 + CKPT_MEASURED].copy()
     del host_frames
@@ -2838,6 +3057,9 @@ def main() -> int:
     kernels += timed(phase_fleet_kernels, dev)
     timed(phase_aux, dev, cal_u8)
     del cal_u8
+    surface_launches = timed(phase_surface, surface_frames, roi,
+                             surface_ring)
+    del surface_frames
     example_launches = timed(phase_examples)
 
     # Each path was driven with every count at 0 just before it and read
@@ -2867,7 +3089,7 @@ def main() -> int:
              "tsharded_locate_640x480": sharded_launches["tsharded"],
              "wsharded_locate_640x480": sharded_launches["wsharded"],
              "fleet_sharded_640x480_flow": sharded_launches["fleet"],
-             **example_launches}
+             **example_launches, "entry_120x160": surface_launches}
     own_path = {"pyr_down_levels_d2": "flow_640x480",
                 "pyr_down_levels_d1": "locate_1080p",
                 "pyr_tail": "flow_640x480",

@@ -12,11 +12,15 @@ respmon_tpu_torch``), the whole-clip path ``pipeline.scan.process_clip``
 (``runtime.checkpoint``), the sharded paths over ``torch.distributed``
 (``parallel/{mesh,launch,temporal,spatial}``), the auxiliary modules
 (``ops/dtype``'s converters, ``ops/detect_peaks``, ``ops/wavelets``,
-``utils/diagnostics``, ``version``) and the JAX package's nine demos
-(``examples/``, ``python -m respmon_tpu_torch.examples.<name>``).  Left
-out on purpose: ``gaussfit.jacobian_fd`` (never reached in production)
-and LK's ``"onehot"`` / ``"onehot1"`` / ``"patches"`` sampling modes
-(gather strategies for the TPU, equal to ``"slices"``).
+``utils/diagnostics``, ``version``), the JAX package's nine demos
+(``examples/``, ``python -m respmon_tpu_torch.examples.<name>``) and the
+counterpart of ``__graft_entry__.py`` (``entry``): every public name of
+the JAX package, with its arguments.  Left out on purpose (ROADMAP.md
+lists each with its reason): ``gaussfit.jacobian_fd`` (never reached in
+production), LK's ``"onehot"`` / ``"onehot1"`` / ``"patches"`` sampling
+modes (gather strategies for the TPU, equal to ``"slices"``), the Pallas
+kernels' own names, ``bpm.estimate_bpm_jit``, ``lk.level_geometry``'s
+``win`` and the JAX device arguments of ``parallel/mesh``.
 
 Precision policy (the port's counterpart of the JAX package's
 ``Precision.HIGHEST`` rule): float32 matrix products and convolutions run

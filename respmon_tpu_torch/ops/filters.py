@@ -234,3 +234,11 @@ def filtfilt_masked(coeffs: FilterCoeffs, x_padded: torch.Tensor,
     y2r = iir(coeffs, y1r, zi=zi * y1r[..., :1])
     y2 = torch.flip(y2r, dims=[-1])
     return y2[..., p:p + n]
+
+
+def filtfilt(coeffs: FilterCoeffs, x: torch.Tensor) -> torch.Tensor:
+    """Full-length zero-phase filter (scipy-parity) of an (N,) signal or of
+    the rows of a (..., N) one: ``filtfilt_masked`` with every sample
+    valid."""
+    count = torch.full(x.shape[:-1], x.shape[-1], device=x.device)
+    return filtfilt_masked(coeffs, x, count)

@@ -77,9 +77,26 @@ def gaussian_fit_batch(t: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     the first valid samples.  Tolerances are sqrt(machine eps) of the
     dtype (MINPACK's 1.49e-8 in f64; 3.45e-4 in f32, the f32 roundoff
     floor).  Params and cost of non-converged lanes are unspecified."""
+    return _fit(t, y, mask, iters, None, None)
+
+
+def gaussian_fit_single(t: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                        iters: int = 200, ftol: float | None = None,
+                        xtol: float | None = None) -> GaussFit:
+    """The fit of one masked (W,) window, a ``GaussFit`` of 0-d tensors:
+    ``gaussian_fit_batch`` at B = 1, with ``ftol`` / ``xtol`` in place of
+    the dtype's default tolerance where given."""
+    fit = _fit(t[None], y[None], mask[None], iters, ftol, xtol)
+    return GaussFit(*(f[0] for f in fit))
+
+
+def _fit(t, y, mask, iters: int, ftol, xtol) -> GaussFit:
+    """The batched LM loop; a ``None`` tolerance is the dtype's default."""
     dtype = y.dtype
     dev = y.device
     tol = 1.49e-8 if dtype == torch.float64 else 3.45e-4
+    ftol = tol if ftol is None else ftol
+    xtol = tol if xtol is None else xtol
     w = mask.to(dtype)
     nvalid = mask.sum(dim=-1)
     npts = t.shape[-1]
@@ -173,11 +190,11 @@ def gaussian_fit_batch(t: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
             torch.where((ratio >= 0.75) | inside, 2.0 * pnorm, Delta))
         accept = (ratio > 1e-4) & torch.isfinite(p_new).all(dim=-1) \
             & torch.isfinite(F_new)
-        ftol_hit = accept & ((actred).abs() <= tol * F) \
-            & (pred <= tol * F) & (ratio <= 2.0)
+        ftol_hit = accept & ((actred).abs() <= ftol * F) \
+            & (pred <= ftol * F) & (ratio <= 2.0)
         p_acc = torch.where(accept[..., None], p_new, p)
         F_acc = torch.where(accept, F_new, F)
-        xtol_hit = Delta_new <= tol * norm(D * p_acc)
+        xtol_hit = Delta_new <= xtol * norm(D * p_acc)
         return p_acc, F_acc, D, Delta_new, ftol_hit | xtol_hit
 
     p, F, D, Delta = p0, F0, D0, Delta0

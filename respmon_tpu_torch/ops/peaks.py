@@ -103,3 +103,12 @@ def peak_indexes_masked(y: torch.Tensor, count: torch.Tensor, min_dist: int,
     out.scatter_(-1, slot, idx.to(torch.int32).expand(y.shape[:-1] + (n,)))
     indices = out[..., :max_peaks]
     return indices, indices >= 0
+
+
+def peak_indexes(y: torch.Tensor, min_dist: int, thres: float = 0.3,
+                 max_peaks: int = 32):
+    """peakutils.indexes of a full (N,) signal, or of each row of a
+    (..., N) one: ``peak_indexes_masked`` with every sample valid."""
+    count = torch.full(y.shape[:-1], y.shape[-1], device=y.device)
+    return peak_indexes_masked(y, count, min_dist, thres=thres,
+                               max_peaks=max_peaks)

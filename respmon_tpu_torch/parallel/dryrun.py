@@ -78,11 +78,12 @@ def dryrun_rank(device: torch.device) -> dict:
                                               loc_t.h)]}
 
 
-def dryrun_multichip(n: int) -> list:
+def dryrun_multichip(n_devices: int) -> list:
     """Run one sharded fleet step and the W- and T-sharded paths over
-    ``n`` gloo ranks on the CPU; returns each rank's summary (the same on
-    every rank)."""
-    results = run_ranks(dryrun_rank, n, backend="gloo", device="cpu")
+    ``n_devices`` gloo ranks on the CPU; returns each rank's summary (the
+    same on every rank)."""
+    results = run_ranks(dryrun_rank, n_devices, backend="gloo",
+                        device="cpu")
     assert all(r == results[0] for r in results), results
     return results
 

@@ -19,13 +19,14 @@ changes nothing in place.  ``relock_state`` moves a state onto a new ROI
 
 The fleet's functions take a batched state (a leading stream axis S on
 every field) and an (S, H, W) frame batch, where the JAX package ``vmap``s
-the single-stream ones: ``measure_step_batch``, ``measure_step_cached``
-(with the carried LK cache ``FlowCache``) and ``relock_state_batch``.  They
-read nothing from the device to decide what to run: the crop is one gather
-of S windows at the ROIs on the device, and the first-frame corner
-detection runs for the batch unless ``initialized_hint`` promises that
-every stream has its corners.  ``measure_step`` and ``relock_state`` are
-their S = 1 cases.
+the single-stream ones: ``measure_step_batch``, the batched form of
+``measure_step_cached`` (with the carried LK cache ``FlowCache``) and
+``relock_state_batch``.  They read nothing from the device to decide what
+to run: the crop is one gather of S windows at the ROIs on the device, and
+the first-frame corner detection runs for the batch unless
+``initialized_hint`` promises that every stream has its corners.
+``measure_step``, ``relock_state`` and the single-stream form of
+``measure_step_cached`` are their S = 1 cases.
 """
 
 from __future__ import annotations
@@ -152,8 +153,9 @@ def _first(states: MeasureState) -> MeasureState:
     return MeasureState(*(f[0] for f in states))
 
 
-def measure_step(state: MeasureState, frame,
-                 spec: MeasureSpec) -> Tuple[MeasureState, torch.Tensor]:
+def measure_step(state: MeasureState, frame, spec: MeasureSpec,
+                 initialized_hint: bool = False
+                 ) -> Tuple[MeasureState, torch.Tensor]:
     """One frame of the measure state: crop -> motion value -> ring push.
 
     Returns (new_state, sample).  ``new_state.error`` reports the
@@ -170,12 +172,23 @@ def measure_step(state: MeasureState, frame,
     It is ``measure_step_batch`` with one stream; the host reads
     ``state.initialized`` to skip the tracking of a first frame or the
     corners of a later one, as the JAX package's ``lax.cond`` does.
+    ``initialized_hint=True`` promises the state already has its corners:
+    the step skips that read (one device synchronisation a frame) and the
+    corner detection.
     """
     frame = torch.as_tensor(frame).to(state.data.device)
     new, sample = measure_step_batch(
         _one(state), frame[None], spec,
-        initialized_hint=spec.method == "flow" and bool(state.initialized))
+        initialized_hint=_single_hint(state, spec, initialized_hint))
     return _first(new), sample[0]
+
+
+def _single_hint(state: MeasureState, spec: MeasureSpec,
+                 initialized_hint: bool) -> bool:
+    """Whether a single-stream flow step may skip its corner detection: the
+    caller's promise, else the host's read of ``state.initialized``."""
+    return spec.method == "flow" and (initialized_hint
+                                      or bool(state.initialized))
 
 
 def flow_update(fr: lk.FlowResult, pts, valid, motion_xy, motion_count,
@@ -243,7 +256,7 @@ def relock_state(state: MeasureState, frame, new_roi: Sequence[int],
 
 class FlowCache(NamedTuple):
     """The carried LK frame structures of each stream's PREVIOUS frame
-    (the fleet fast path; respmon_tpu/pipeline/motion.py:260-275).
+    (``measure_step_cached``; respmon_tpu/pipeline/motion.py:260-275).
 
     A flow step builds the pyramid and padding of its frame for the
     next-role images; the next step needs that crop's pyramid, Scharr maps
@@ -255,7 +268,7 @@ class FlowCache(NamedTuple):
     0 of the same stacks.
     """
 
-    stacks: Tuple[torch.Tensor, ...]   # per level (S, 3, Hp, Wp)
+    stacks: Tuple[torch.Tensor, ...]   # per level ([S,] 3, Hp, Wp)
 
 
 def init_flow_cache(spec: MeasureSpec, dtype=torch.float32,
@@ -427,24 +440,52 @@ def measure_step_batch(states: MeasureState, frames, spec: MeasureSpec,
     return new, sample
 
 
-def measure_step_cached(states: MeasureState, cache: Optional[FlowCache],
-                        frames, spec: MeasureSpec,
+def measure_step_cached(state: MeasureState, cache: Optional[FlowCache],
+                        frame, spec: MeasureSpec,
                         initialized_hint: bool = False,
                         cache_valid: bool = True
                         ) -> Tuple[MeasureState, FlowCache, torch.Tensor]:
-    """``measure_step_batch`` with the carried prev-frame LK cache (flow
-    mode), bit for bit the same results and one pyramid build cheaper per
-    step.  ``cache_valid=False`` rebuilds the prev structures from
+    """``measure_step`` with the carried prev-frame LK cache (flow mode),
+    bit for bit the same results and one pyramid build cheaper per step.
+
+    Two forms:
+
+    - one stream, as the JAX package's: a single-stream ``state``, the
+      cache ``init_flow_cache`` makes (per level (3, Hp, Wp)) and an
+      (H, W) ``frame``; returns a single-stream state and cache and a 0-d
+      sample.  ``initialized_hint`` works as in ``measure_step``.
+    - the fleet's: batched (S, ...) states, an (S, ...) cache
+      (``parallel.streams.init_fleet_cache``) and (S, H, W) frames;
+      returns (S,) samples.  ``initialized_hint`` works as in
+      ``measure_step_batch``.
+
+    ``cache_valid=False`` rebuilds the prev structures from
     ``state.prev_crop`` (the first step after a calibration, a restore or
-    any outside change of the states), and ``cache`` may then be ``None``
+    any outside change of the state), and ``cache`` may then be ``None``
     or ``init_flow_cache``'s placeholder; the returned cache is valid
     either way.  Average mode returns the cache untouched."""
+    single = state.data.dim() == 1
+    if single:
+        initialized_hint = _single_hint(state, spec, initialized_hint)
+        state = _one(state)
+        frame = torch.as_tensor(frame).to(state.data.device)[None]
     if spec.method != "flow":
-        new, sample = measure_step_batch(states, frames, spec,
+        new, sample = measure_step_batch(state, frame, spec,
                                          initialized_hint)
-        return new, cache, sample
-    return _measure_batch(states, frames, spec, initialized_hint, True,
-                          cache.stacks if cache_valid else None)
+        new_cache = cache
+    else:
+        prev = None
+        if cache_valid:
+            prev = tuple(s[None] for s in cache.stacks) if single \
+                else cache.stacks
+        new, new_cache, sample = _measure_batch(
+            state, frame, spec, initialized_hint, True, prev)
+        if single:
+            new_cache = FlowCache(stacks=tuple(s[0]
+                                               for s in new_cache.stacks))
+    if single:
+        return _first(new), new_cache, sample[0]
+    return new, new_cache, sample
 
 
 def relock_state_batch(states: MeasureState, frames,

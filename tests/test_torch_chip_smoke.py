@@ -228,13 +228,13 @@ def test_main_prints_each_phase_seconds_within_the_budget():
                   "phase_fleet_cross_check", "phase_fleet_streaming",
                   "phase_fleet_1080p", "phase_fleet_kernels",
                   "phase_checkpoint", "phase_sharded", "phase_aux",
-                  "phase_examples"):
+                  "phase_surface", "phase_examples"):
         assert f"timed({phase}" in src
     # The K1 demos' paths, read beside the others in the kernels line.
     for path in ("example_locating_60x80", "example_flow_120x160",
                  "example_multistream_60x80"):
         assert f'"{path}"' in inspect.getsource(chip_smoke.phase_examples)
-    assert "**example_launches" in src
+    assert "**example_launches" in src and '"entry_120x160"' in src
     assert '"phase_seconds"' in src and chip_smoke.TIME_BUDGET_S == 900
 
 
@@ -399,3 +399,61 @@ def test_examples_phase_fails_on_a_missing_launch(monkeypatch):
     # On the CPU no kernel launches, and nothing counts a plan's launches.
     with pytest.raises(RuntimeError, match="launched K1"):
         chip_smoke.phase_examples("cpu")
+
+
+# -- the functions that completed the surface ---------------------------------
+
+def _surface_inputs():
+    """Measured frames of the 120x160 u8 clip, the ROI that ``locate``
+    finds on it (tests/test_torch_flow.py), and a full 128-sample ring."""
+    import numpy as np
+
+    from respmon_tpu_torch.io.synthetic import motion_trace
+
+    frames = _u8_clip(64 + 2 + chip_smoke.SURFACE_FRAMES)[66:]
+    t, y = motion_trace(num_samples=128, fps=chip_smoke.FPS, bpm=18.0,
+                        noise=0.05)
+    ring = {"data": y.astype(np.float32), "t": t.astype(np.float32),
+            "count": np.asarray(128, np.int32)}
+    return frames, (58, 43, 43, 32), ring
+
+
+@pytest.fixture
+def cpu_timers(monkeypatch):
+    """No CUDA events on the CPU: each stand-in timer makes one call."""
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, **kw: (fn(), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, "event_ms", lambda fn: (fn(), 0.0))
+
+
+def test_surface_phase_rehearses_on_the_cpu(planned_launches, cpu_timers):
+    lines = planned_launches
+    frames, roi, ring = _surface_inputs()
+    launches = chip_smoke.phase_surface(frames, roi, ring, "cpu")
+    row = lines[-1]
+    assert row["phase"] == "surface"
+    # The entry's one (64, 120, 160) L6/S2 locate: B alone at this size.
+    planned = chip_smoke.planned_launches(120, 160, 6, 2)
+    assert {k: launches[k] for k in planned} == planned
+    assert launches["pyr_tail"] == 1 and sum(launches.values()) == 1
+    assert row["entry_found"] and row["entry_box"] == row["entry_cpu_box"]
+    assert row["entry_heatmap_max_abs_diff"] == 0
+    for method in ("flow", "average"):
+        assert set(row[f"step_{method}_ms"]) == {
+            "cached_hinted", "uncached", "uncached_hinted"}
+    assert row["filtfilt_max_abs_err"] == 0.0
+    assert min(row["peaks_found"]) > 0 and row["window_points"] >= 3
+    for name in ("gaussian_fit_single_float32",
+                 "gaussian_fit_single_float64"):
+        assert row[name]["converged"] and row[name]["cpu_converged"]
+    assert {"filtfilt_5x128", "filtfilt_128", "peak_indexes_5x128",
+            "peak_indexes_128", "gaussian_fit_single_float32",
+            "gaussian_fit_single_float64",
+            "entry_locate_64x120x160"} == set(row["ms"])
+
+
+def test_surface_phase_fails_on_a_missing_launch(cpu_timers, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "emit", lambda row: None)
+    # On the CPU no kernel launches, and nothing counts a plan's launches.
+    with pytest.raises(RuntimeError, match="launched K1"):
+        chip_smoke.phase_surface(*_surface_inputs(), "cpu")

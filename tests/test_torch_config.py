@@ -19,6 +19,7 @@ from respmon_tpu.utils.bbox import reduce_bounding_box as jreduce
 import respmon_tpu_torch
 from respmon_tpu_torch import config as tconfig
 from respmon_tpu_torch import device as tdevice
+from respmon_tpu_torch import entry as tentry
 from respmon_tpu_torch import interop
 from respmon_tpu_torch.io import synthetic as tsyn
 from respmon_tpu_torch.ops import dtype as tdtype
@@ -230,6 +231,8 @@ def _no_card_calls():
         "process_clip_auto": lambda: tscan.process_clip_auto(
             clip, 10.0, SMALL_CFG),
         "init_state": lambda: tmotion.init_state(spec, (0, 0, 16, 12)),
+        "init_flow_cache": lambda: tmotion.init_flow_cache(spec),
+        "entry": lambda: tentry.entry(),
         "measure_state_from_numpy": lambda: interop.measure_state_from_numpy(
             interop.measure_state_to_numpy(
                 tmotion.init_state(spec, (0, 0, 16, 12), device="cpu"))),
