@@ -49,7 +49,12 @@ results), the functions that completed the port's public surface
 ``__graft_entry__.entry()``, ``respmon_tpu_torch.entry``, whose 64-frame
 120x160 ``locate`` runs K1), and the port's nine demos run in this process
 on the card (``phase_examples``: K1 in the locating, flow and fleet demos,
-the 1-D demos and the locating demo against their CPU runs).  Each phase
+the 1-D demos and the locating demo against their CPU runs), and the
+port's benchmark, ``respmon_tpu_torch.bench``: its nine modes (bench.py's)
+through their in-process functions, the headline at full size and the
+others cut to the phase's time (``phase_bench``, ``BENCH_MODES``), each
+line checked for bench.py's keys, finite numbers and its mode's results,
+and every K1 call in it for the launches of its plan.  Each phase
 prints one JSON line; then each phase's seconds, the kernel table, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits 1.
@@ -768,16 +773,20 @@ def slice_frames(dev):
     return torch.from_numpy(quantize(_fixture(cal_len + 1 + 128))).to(dev)
 
 
-# The live monitor's clip: frame 0, 128 calibration frames, 1 dropped, 80
-# measured.
-MONITOR_FRAMES = 1 + 128 + 1 + 80
-# The flow profiler pass's clip: 48 measured frames.
-PROFILE_FRAMES = 1 + 128 + 1 + 48
+# The live monitor's clip: frame 0, 128 calibration frames, 1 dropped, 64
+# measured (80 before phase_bench, for the script's time).  The fed monitor
+# runs the first FEEDER_MEASURED of them (60 before phase_bench); the direct
+# run's first BPM comes at about the 49th.
+MONITOR_FRAMES = 1 + 128 + 1 + 64
+FEEDER_MEASURED = 54
+# The flow profiler pass's clip: 24 measured frames.
+PROFILE_FRAMES = 1 + 128 + 1 + 24
 
-# The recovery clip: 1 + 128 calibration frames + 1 dropped, 30 measured,
-# a 15-frame blackout, then room to recalibrate (1 + 128 + 1) and to
-# measure until a BPM comes again.
+# The recovery clip: 1 + 128 calibration frames + 1 dropped, 16 measured
+# (30 before phase_bench, for the script's time), a 15-frame blackout, then
+# room to recalibrate (1 + 128 + 1) and to measure until a BPM comes again.
 RECOVERY_FRAMES = 400
+RECOVERY_BLACKOUT_AT = 16
 
 
 def recovery_frames():
@@ -1435,6 +1444,9 @@ def phase_streaming_kernels(dev):
 # calibration frames, 1 dropped, 64 measured), from (225, 290) to
 # (255, 350).
 MONITOR_STREAM_FRAMES = 1 + 128 + 1 + 64
+# The streaming monitors' clip: the same drift over 40 measured frames (64
+# before phase_bench, for the script's time).
+STREAM_MONITOR_FRAMES = 1 + 128 + 1 + 40
 STREAM_START = (225, 290)
 STREAM_DRIFT = (30.0, 60.0)
 
@@ -1776,10 +1788,12 @@ def phase_1080p(dev):
 # FLEET_MEASURED measured.  Below 18 BPM two periods do not fit in so few
 # frames and the estimate misses by more than 1: over 96 frames the JAX
 # fleet reads 14.3 for 12 BPM and 17.1 for 15 at stream 0, as the port does
-# on the CPU and on the card (tests/jax_fleet_fixture_bpm.py).
+# on the CPU and on the card (tests/jax_fleet_fixture_bpm.py).  Cut from 80
+# to 72 for the script's time: over 72 the port reads 18.18, 20.69, 23.53
+# and 26.67 on the CPU (over 64, 23.08 for 24: too near the bound).
 FLEET_BPMS = (18.0, 21.0, 24.0, 27.0)
 FLEET_CENTRES = ((150, 190), (150, 450), (330, 190), (330, 450))
-FLEET_MEASURED = 80
+FLEET_MEASURED = 72
 # The streaming fleet: each subject drifts (dy, dx) over its clip.
 FLEET_DRIFTS = ((30.0, 60.0), (30.0, -60.0), (-30.0, 60.0), (-30.0, -60.0))
 FLEET_STREAM_MEASURED = 24
@@ -2104,8 +2118,9 @@ def phase_fleet_1080p(roi, buffer, device=None,
     """bench.py's main_multistream (bench.py:771-899) on the card: the
     1080p locate's box tiled over 64 streams, three u8 (64,1080,1920)
     batches rolled by 0, 1 and 2 px so LK does real work, full rings
-    installed before timing.  Times the step over 10 steps with one host
-    read at the end and over 3 with a read after every step, the float64
+    installed before timing.  Times the step over 4 steps with one host
+    read at the end (``phase_bench``'s ``--multistream`` times 10) and over
+    2 with a read after every step, the float64
     refit tier over 3 steps (its LM steps counted), and in streaming-ROI mode
     the step with an absorb (K1 at (64,1080,1920), held to the plain
     pyramid on one batch) and with a coarse update, on rings warm-started
@@ -2158,8 +2173,8 @@ def phase_fleet_1080p(roi, buffer, device=None,
     first_s = [steps(mon, 1, True, i) for i in range(3)]   # corners first
     _full_rings(mon, s, cfg.measure.buffer_length, dev)
     steps(mon, 1, True)              # the LK cache's rebuild step
-    pipelined = steps(mon, 10, False, 1)
-    read_each = steps(mon, 3, True, 2)
+    pipelined = steps(mon, 4, False, 1)
+    read_each = steps(mon, 2, True, 2)
 
     # The float64 refit tier from the same states.
     cfg64 = dataclasses.replace(cfg, fleet_f64_refine=True)
@@ -2771,6 +2786,175 @@ def phase_examples(device=None):
             "example_multistream_60x80": launches["multistream_demo"]}
 
 
+# phase_bench: respmon_tpu_torch.bench's nine modes, run in this process
+# on the card, each at the sizes that keep the script inside its budget:
+# the headline at its full size (640x480, 5 timed iterations, the 16 x 720p
+# fleet segment, 2 of its 8 timed steps), the others cut as named here.
+# The corpus's first 4 traces hold its 4 kinds, at one fps as its first 35.
+# The recovery soak runs cold: its warm variant's path (the streaming
+# rings through the error state) is phase_monitor_warm_recovery's, at full
+# calibration size, and tests/test_torch_bench_modes.py runs it.
+BENCH_MODES = (
+    ("headline", "main_headline", {"fleet_steps": 2}),
+    ("bpm_corpus", "main_bpm_corpus", {"n_traces": 4}),
+    ("streaming", "main_streaming", {}),
+    ("live", "main_live", {"measure_frames": 16}),
+    ("fleet_live", "main_fleet_live",
+     {"streams": 4, "measure_frames": 8, "height": 480, "width": 640}),
+    ("recovery", "main_recovery", {"cycles": 1, "smoke": True}),
+    ("breakdown", "main_fleet_breakdown",
+     {"streams": 4, "calls": 1, "windows": 1, "production_steps": 1}),
+    ("multistream", "main_multistream",
+     {"streams": 64, "sync_steps": 1, "streaming_interval": 1,
+      "batch_iters": 1}),
+)
+# The top-level keys of each mode's line: bench.py's, plus "device".
+BENCH_KEYS = {
+    "main_headline": (
+        "metric", "value", "unit", "vs_baseline", "value_with_upload",
+        "upload_ingest", "u8_widen_exact_on_device",
+        "value_with_upload_pcie16GBps_estimate", "h2d_overlap",
+        "config3_locate_ms", "config3_geometry", "config3_found",
+        "config3_realtime_x", "gaussfit_device_agreement_realistic",
+        "gaussfit_device_agreement_noise", "bpm_tail_median", "bpm_true",
+        "bpm_oracle_delta", "fleet_streams", "fleet_geometry",
+        "fleet_step_ms", "fleet_sfps", "fleet_realtime_margin_at_10fps"),
+    "main_bpm_corpus": (
+        "metric", "value", "unit", "vs_baseline", "n_traces", "n_steps",
+        "n_both_have_bpm", "has_bpm_mismatch_rate", "delta_p50",
+        "delta_p99", "delta_p999", "traces_within_half_bpm",
+        "per_kind_max", "per_kind_p99"),
+    "main_streaming": (
+        "metric", "unit", "interval", "value", "vs_baseline",
+        *(f"{k}_{g}" for g in ("640_480", "1080p") for k in (
+            "absorb_ms", "update_ms", "update_coarse_ms",
+            "amortized_ms_per_frame", "amortized_coarse_ms_per_frame",
+            "realtime_x"))),
+    "main_live": (
+        "metric", "value", "unit", "vs_baseline", "sync_fps",
+        "overlap_gain", "dropped", "u8_upload_live_fps",
+        "u8_upload_sync_fps", "simulated_capture_ms"),
+    "main_fleet_live": (
+        "metric", "value", "unit", "vs_baseline", "ticks", "tick_rate_hz",
+        "stale_rate", "dropped_total", "simulated_capture_ms"),
+    "main_recovery": (
+        "metric", "streaming_roi", "relocks", "value", "unit",
+        "vs_baseline", "cycles", "max_latency_s", "compute_latency_s",
+        "error_reset_delay_s", "pre_fault_bpm_tail_median", "bpm_true",
+        "state_sequence_ok"),
+    "main_fleet_breakdown": (
+        "metric", "value", "unit", "vs_baseline", "production_step_ms",
+        "stages_ms", "derived_ms"),
+    "main_multistream": (
+        "metric", "value", "unit", "vs_baseline", "step_ms",
+        "step_ms_sync_fetch", "realtime_margin_at_10fps",
+        "batch4_ms_per_frame", "batch4_realtime_margin",
+        "recalibration_1080p_ms", "streaming_step_ms",
+        "streaming_overhead_ms_per_step",
+        "streaming_overhead_ms_per_stream_frame", "streaming_interval"),
+}
+
+
+class k1_plans:
+    """Inside it, every K1 call (``evm._band_laplacian_levels``: each
+    ``locate``, absorb and warm start) adds to ``planned`` the launches its
+    plan makes at its geometry, and to ``calls`` one."""
+
+    def __enter__(self):
+        import collections
+
+        from respmon_tpu_torch.pipeline import evm
+
+        self._evm, self._k1 = evm, evm._band_laplacian_levels
+        self.planned = collections.Counter()
+        self.calls = 0
+
+        def counted(vid, cfg):
+            self.calls += 1
+            self.planned.update(planned_launches(
+                vid.shape[-2], vid.shape[-1], cfg.pyramid_levels,
+                cfg.skip_levels_at_top))
+            return self._k1(vid, cfg)
+
+        evm._band_laplacian_levels = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._evm._band_laplacian_levels = self._k1
+
+
+def _finite_numbers(obj) -> bool:
+    import math
+
+    if isinstance(obj, dict):
+        return all(_finite_numbers(v) for v in obj.values())
+    if isinstance(obj, (bool, str)):
+        return True
+    return isinstance(obj, (int, float)) and math.isfinite(obj)
+
+
+def phase_bench(device=None, modes=BENCH_MODES):
+    """``respmon_tpu_torch.bench``'s modes (``BENCH_MODES``) through their
+    in-process functions, on the card unless ``device`` says otherwise.
+    Each prints exactly one JSON line with bench.py's keys for its mode
+    (``BENCH_KEYS``) and the card's name, every number finite.  The
+    headline's BPM tail lies within 1 of its 18 BPM; the corpus's has-BPM
+    decisions all equal the scipy chain's, as the JAX estimator's did on
+    the full corpus.  Every K1 call of a mode launched what its plan says
+    (``k1_plans``), no other kernel ran, and the modes that calibrate or
+    absorb ran K1: the 1080p unit of ``--multistream`` its A (d = 1), the
+    first level of the 1080p plan and K2's port.  Returns each mode's
+    launches, by path."""
+    import contextlib
+    import io
+
+    from respmon_tpu_torch import bench
+
+    paths = {}
+    for name, fn_name, kwargs in modes:
+        buf = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with k1_plans() as k1, contextlib.redirect_stdout(buf):
+            ret = getattr(bench, fn_name)(device=device, **kwargs)
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+        check(len(lines) == 1, f"bench {name} printed one line: {lines}")
+        line = json.loads(lines[0])
+        check(line == ret, f"bench {name} returned its line")
+        want = set(BENCH_KEYS[fn_name]) | {"device"}
+        check(set(line) == want, f"bench {name} has bench.py's keys and "
+              f"the device: {sorted(set(line) ^ want)} differ")
+        check(_finite_numbers(line), f"bench {name}: finite numbers {line}")
+        expected = {k: k1.planned.get(k, 0) for k in counts}
+        check(counts == expected, f"bench {name}: every K1 call launched "
+              f"its plan ({expected}): {counts}")
+        if fn_name == "main_bpm_corpus":
+            check(k1.calls == 0 and line["has_bpm_mismatch_rate"] == 0,
+                  f"bench {name}: every has-BPM decision equals the scipy "
+                  f"chain's, no kernel: {line}")
+        else:
+            check(k1.calls > 0 and counts["pyr_tail"] > 0,
+                  f"bench {name} launched K1: {counts}")
+        if fn_name == "main_headline":
+            check(abs(line["bpm_tail_median"] - 18.0) <= 1.0
+                  and line["u8_widen_exact_on_device"]
+                  and line["config3_found"],
+                  f"bench headline: BPM tail within 1 of 18, exact u8 "
+                  f"widen, config 3 found: {line}")
+        if fn_name == "main_multistream":
+            check(counts["pyr_down_levels_d1"] > 0,
+                  f"bench multistream's 1080p unit launched K2: {counts}")
+        if fn_name == "main_recovery":
+            check(line["state_sequence_ok"] and line["cycles"] == 1,
+                  f"bench {name} recovered: {line}")
+        paths[f"bench_{name}"] = counts
+        emit({"phase": "bench", "mode": name, "seconds": seconds,
+              "k1_calls": k1.calls, "launches": counts, "line": line})
+    return paths
+
+
 # phase_surface: measured frames of the single-stream cached step, and the
 # BPM stage's peak-finding arguments (MeasureConfig at 10 fps).
 SURFACE_FRAMES = 20
@@ -3017,28 +3201,30 @@ def main() -> int:
     k3_launches = timed(phase_k3_locate, frames, roi)
     timed(phase_iir_locate, frames, roi)
     flow_launches = timed(phase_flow_slice, frames, roi)
-    # The profiler pass over the clip's first PROFILE_FRAMES frames (48
+    # The profiler pass over the clip's first PROFILE_FRAMES frames (24
     # measured), for the script's time.
     timed(phase_flow_profile, frames[:PROFILE_FRAMES])
     host_frames = frames.cpu().numpy()
     cal_u8 = host_frames[1:129].copy()   # the calibration buffer
     surface_frames = host_frames[130:130 + SURFACE_FRAMES].copy()
     del frames
-    # The live monitor over the clip's first MONITOR_FRAMES frames (80
-    # measured), and the fed one over its first 60.
+    # The live monitor over the clip's first MONITOR_FRAMES frames (64
+    # measured), and the fed one over its first 54.
     monitor_launches, average_mon = timed(phase_monitor,
                                           host_frames[:MONITOR_FRAMES])
     surface_ring = {k: getattr(average_mon._measure_state, k).cpu().numpy()
                     for k in ("data", "t", "count")}
-    timed(phase_feeder, host_frames, average_mon)
+    timed(phase_feeder, host_frames, average_mon, measured=FEEDER_MEASURED)
     ckpt_frames = host_frames[:1 + 128 + 1 + CKPT_MEASURED].copy()
     del host_frames
     streaming_launches = timed(phase_streaming, dev)
     stream_monitor_launches = timed(phase_monitor_streaming,
-                                    streaming_frames())
+                                    streaming_frames(STREAM_MONITOR_FRAMES))
     recovery = recovery_frames()
-    recovery_launches, cold_frames = timed(phase_monitor_recovery, recovery)
+    recovery_launches, cold_frames = timed(phase_monitor_recovery, recovery,
+                                           blackout_at=RECOVERY_BLACKOUT_AT)
     warm_launches = timed(phase_monitor_warm_recovery, recovery,
+                          blackout_at=RECOVERY_BLACKOUT_AT,
                           cold_fault_to_bpm=cold_frames)
     del recovery
     launches_1080p, roi_1080p, clip_1080p = timed(phase_1080p, dev)
@@ -3061,6 +3247,7 @@ def main() -> int:
                              surface_ring)
     del surface_frames
     example_launches = timed(phase_examples)
+    bench_launches = timed(phase_bench)
 
     # Each path was driven with every count at 0 just before it and read
     # just after.  ``launches`` is the count on the kernel's own path: the
@@ -3089,7 +3276,8 @@ def main() -> int:
              "tsharded_locate_640x480": sharded_launches["tsharded"],
              "wsharded_locate_640x480": sharded_launches["wsharded"],
              "fleet_sharded_640x480_flow": sharded_launches["fleet"],
-             **example_launches, "entry_120x160": surface_launches}
+             **example_launches, "entry_120x160": surface_launches,
+             **bench_launches}
     own_path = {"pyr_down_levels_d2": "flow_640x480",
                 "pyr_down_levels_d1": "locate_1080p",
                 "pyr_tail": "flow_640x480",

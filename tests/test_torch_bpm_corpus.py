@@ -1,8 +1,9 @@
 """Port parity on the BPM corpus: the port's ``bpm.estimate_bpm`` against
 the JAX package's, window by window, over every sliding ring window of a
-reduced ``bench.corpus_traces`` set (the traces of ``bench.py
---bpm-corpus``, seeded), at ``tests/test_bpm_corpus.py``'s size and
-stride.
+reduced ``corpus_traces`` set (the traces of ``python -m
+respmon_tpu_torch.bench --bpm-corpus``, seeded, bit for bit ``bench.py``'s:
+``tests/test_torch_bench_modes.py``), at ``tests/test_bpm_corpus.py``'s
+size and stride.
 
 Both estimators run float32 rings with the default ``MeasureConfig`` (the
 float64 refit of wild fits on), as the JAX package's device chain does.
@@ -16,10 +17,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from bench import corpus_traces
 from respmon_tpu.config import MeasureConfig as JMeasureConfig
 from respmon_tpu.ops import filters as jfilters
 from respmon_tpu.pipeline import bpm as jbpm
+from respmon_tpu_torch.bench import corpus_traces
 from respmon_tpu_torch.config import MeasureConfig
 from respmon_tpu_torch.ops import filters
 from respmon_tpu_torch.pipeline import bpm

@@ -228,13 +228,14 @@ def test_main_prints_each_phase_seconds_within_the_budget():
                   "phase_fleet_cross_check", "phase_fleet_streaming",
                   "phase_fleet_1080p", "phase_fleet_kernels",
                   "phase_checkpoint", "phase_sharded", "phase_aux",
-                  "phase_surface", "phase_examples"):
+                  "phase_surface", "phase_examples", "phase_bench"):
         assert f"timed({phase}" in src
     # The K1 demos' paths, read beside the others in the kernels line.
     for path in ("example_locating_60x80", "example_flow_120x160",
                  "example_multistream_60x80"):
         assert f'"{path}"' in inspect.getsource(chip_smoke.phase_examples)
     assert "**example_launches" in src and '"entry_120x160"' in src
+    assert "**bench_launches" in src
     assert '"phase_seconds"' in src and chip_smoke.TIME_BUDGET_S == 900
 
 
@@ -457,3 +458,37 @@ def test_surface_phase_fails_on_a_missing_launch(cpu_timers, monkeypatch):
     # On the CPU no kernel launches, and nothing counts a plan's launches.
     with pytest.raises(RuntimeError, match="launched K1"):
         chip_smoke.phase_surface(*_surface_inputs(), "cpu")
+
+
+# -- the benchmark's modes ------------------------------------------------------
+
+# Two of phase_bench's modes at a CPU size: the corpus (no kernel) and the
+# live path, which calibrates (K1).
+SMALL_BENCH = (
+    ("bpm_corpus", "main_bpm_corpus", {"n_traces": 1}),
+    ("live", "main_live", {"measure_frames": 4, "capture_ms": 0.0,
+                           "height": 120, "width": 160,
+                           "calibration": CFG.calibration}),
+)
+
+
+def test_bench_phase_rehearses_on_the_cpu(planned_launches):
+    lines = planned_launches
+    paths = chip_smoke.phase_bench("cpu", SMALL_BENCH)
+    assert set(paths) == {"bench_bpm_corpus", "bench_live"}
+    assert sum(paths["bench_bpm_corpus"].values()) == 0
+    # The live mode's one 64-frame 120x160 locate.
+    planned = chip_smoke.planned_launches(120, 160, 6, 2)
+    assert {k: paths["bench_live"][k] for k in planned} == planned
+    rows = [row for row in lines if row.get("phase") == "bench"]
+    assert [row["mode"] for row in rows] == ["bpm_corpus", "live"]
+    assert rows[1]["k1_calls"] == 1
+    assert rows[1]["line"]["metric"] == "live_path_sustained_160x120"
+    assert all(row["line"]["device"] == "cpu" for row in rows)
+
+
+def test_bench_phase_fails_on_a_missing_launch(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "emit", lambda row: None)
+    # On the CPU no kernel launches, and nothing counts a plan's launches.
+    with pytest.raises(RuntimeError, match="every K1 call launched"):
+        chip_smoke.phase_bench("cpu", SMALL_BENCH[1:])

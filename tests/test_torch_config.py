@@ -137,7 +137,7 @@ def _port_sources():
 
 def test_no_port_source_imports_jax_or_the_jax_package():
     pattern = re.compile(
-        r"^\s*(from|import)\s+(jax|jaxlib|respmon_tpu)(\.|\s|$)", re.M)
+        r"^\s*(from|import)\s+(jax|jaxlib|respmon_tpu|bench)(\.|\s|$)", re.M)
     paths = _port_sources()
     assert len(paths) > 20
     assert os.path.join(REPO, "respmon_tpu_torch", "pipeline",
@@ -148,7 +148,7 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                  ("parallel", "spatial.py"), ("parallel", "launch.py"),
                  ("parallel", "dryrun.py"), ("examples", "flow_demo.py"),
                  ("ops", "wavelets.py"), ("ops", "detect_peaks.py"),
-                 ("utils", "diagnostics.py"), ("version.py",)):
+                 ("utils", "diagnostics.py"), ("version.py",), ("bench.py",)):
         assert os.path.join(REPO, "respmon_tpu_torch", *part) in paths
     for path in paths:
         with open(path) as fh:
@@ -180,14 +180,14 @@ def test_importing_every_port_module_loads_neither_jax_nor_the_jax_package():
                  "parallel.spatial", "parallel.launch", "parallel.dryrun",
                  "examples.flow_demo", "examples.multistream_demo",
                  "ops.wavelets", "ops.detect_peaks", "utils.diagnostics",
-                 "version"):
+                 "version", "bench"):
         assert "respmon_tpu_torch." + name in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'respmon_tpu')]\n"
+        "('jax', 'jaxlib', 'respmon_tpu', 'bench')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=REPO)

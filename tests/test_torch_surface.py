@@ -163,6 +163,17 @@ def test_the_entry_module_mirrors_graft_entry():
     assert tentry.dryrun_multichip is dryrun.dryrun_multichip
 
 
+def test_the_bench_module_mirrors_bench_py():
+    theirs = _surface(os.path.join(REPO, "bench.py"), "bench")
+    ours = _surface(os.path.join(REPO, "respmon_tpu_torch", "bench.py"),
+                    "bench")
+    assert {name for _, name in theirs} >= {
+        "log", "corpus_traces", "main_headline", "main_bpm_corpus",
+        "main_multistream", "main_fleet_breakdown", "main_live",
+        "main_fleet_live", "main_recovery", "main_streaming", "main"}
+    assert _gaps(theirs, ours) == {}
+
+
 def test_the_surface_check_finds_a_missing_name_and_argument():
     theirs = {("m", "f"): ("function", ["a", "b"]),
               ("m", "C"): ("class", ["x"]), ("m", "g"): ("function", [])}
