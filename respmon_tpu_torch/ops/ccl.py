@@ -5,9 +5,10 @@ Port of ``respmon_tpu/ops/ccl.py`` (reference base.py:566-575: threshold ->
 ``boundingRect``).  Labels propagate by sweeps of an 8-neighbourhood min
 plus segmented min-scans along rows and columns (Hillis-Steele doubling
 with contiguous shifts) until a sweep changes nothing — one ``.any()`` host
-check per sweep.  Areas are cv2's polygon areas, decomposed over 2x2
-pixel-centre quads of the hole-filled mask (4 filled -> 1, 3 -> 1/2); the
-``argmax`` over labels keeps the raster-first component on ties, as
+check per sweep (``largest_component_bbox``'s ``locate.ccl`` span counts
+them).  Areas are cv2's polygon areas, decomposed over 2x2 pixel-centre
+quads of the hole-filled mask (4 filled -> 1, 3 -> 1/2); the ``argmax``
+over labels keeps the raster-first component on ties, as
 ``torch.argmax`` documents it returns the first maximal index.
 """
 
@@ -17,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from respmon_tpu_torch.utils.bench import span
 
 
 class BBoxResult(NamedTuple):
@@ -96,20 +99,23 @@ def _segmented_min_scan(lab: torch.Tensor, fg: torch.Tensor, axis: int,
 
 
 def _sweep_to_fixed_point(val: torch.Tensor, fg: torch.Tensor, big: int,
-                          neighbor) -> torch.Tensor:
+                          neighbor):
+    """Sweep until nothing changes; returns (the fixed point, the sweeps
+    run, each one host read)."""
     fill = torch.full_like(val, big)
+    sweeps = 0
     while True:
         new = torch.where(fg, neighbor(val, big), fill)
         new = _segmented_min_scan(new, fg, 1, big)
         new = _segmented_min_scan(new, fg, 0, big)
+        sweeps += 1
         if not bool((new != val).any()):
-            return new
+            return new, sweeps
         val = new
 
 
-def label_components(fg: torch.Tensor) -> torch.Tensor:
-    """8-connected component labels: each foreground pixel gets the
-    smallest flat index of its component; background gets H*W."""
+def _label_components(fg: torch.Tensor):
+    """``label_components`` and its sweeps."""
     h, w = fg.shape
     big = h * w
     idx = torch.arange(big, dtype=torch.int32, device=fg.device).reshape(h, w)
@@ -117,9 +123,14 @@ def label_components(fg: torch.Tensor) -> torch.Tensor:
     return _sweep_to_fixed_point(lab, fg, big, _neighbor_min)
 
 
-def outside_mask(bg: torch.Tensor) -> torch.Tensor:
-    """Background pixels 4-connected to the image border (holes of an
-    8-connected foreground are sealed by diagonal pinches)."""
+def label_components(fg: torch.Tensor) -> torch.Tensor:
+    """8-connected component labels: each foreground pixel gets the
+    smallest flat index of its component; background gets H*W."""
+    return _label_components(fg)[0]
+
+
+def _outside_mask(bg: torch.Tensor):
+    """``outside_mask`` and its sweeps."""
     h, w = bg.shape
     border = torch.zeros((h, w), dtype=torch.bool, device=bg.device)
     border[0, :] = True
@@ -127,23 +138,44 @@ def outside_mask(bg: torch.Tensor) -> torch.Tensor:
     border[:, 0] = True
     border[:, w - 1] = True
     val = torch.where(bg, torch.where(border, 0, 1), 2).to(torch.int32)
-    val = _sweep_to_fixed_point(val, bg, 2, _neighbor_min4)
-    return bg & (val == 0)
+    val, sweeps = _sweep_to_fixed_point(val, bg, 2, _neighbor_min4)
+    return bg & (val == 0), sweeps
+
+
+def outside_mask(bg: torch.Tensor) -> torch.Tensor:
+    """Background pixels 4-connected to the image border (holes of an
+    8-connected foreground are sealed by diagonal pinches)."""
+    return _outside_mask(bg)[0]
+
+
+def _fill_holes(fg: torch.Tensor):
+    """``fill_holes`` and its sweeps."""
+    outside, sweeps = _outside_mask(~fg)
+    return fg | ~outside, sweeps
 
 
 def fill_holes(fg: torch.Tensor) -> torch.Tensor:
     """fg with enclosed background regions filled (RETR_EXTERNAL's view)."""
-    return fg | ~outside_mask(~fg)
+    return _fill_holes(fg)[0]
 
 
 def largest_component_bbox(fg: torch.Tensor) -> BBoxResult:
     """Bounding box (x, y, w, h), cv2 convention, of the component with the
-    largest cv2.contourArea-equivalent outer-contour area."""
+    largest cv2.contourArea-equivalent outer-contour area, in a
+    ``locate.ccl`` span that counts the fixed-point ``sweeps``."""
+    with span("locate.ccl") as rec:
+        box, sweeps = _largest_component_bbox(fg)
+        rec.set(sweeps=sweeps)
+        return box
+
+
+def _largest_component_bbox(fg: torch.Tensor):
+    """``largest_component_bbox`` and its sweeps."""
     h, w = fg.shape
     big = h * w
     dev = fg.device
-    filled = fill_holes(fg)
-    lab = label_components(filled)
+    filled, sweeps_fill = _fill_holes(fg)
+    lab, sweeps_lab = _label_components(filled)
     flat = lab.reshape(-1).to(torch.long)
 
     # index_add_ of multiples of 0.5: exact in f32 in any order.
@@ -175,4 +207,4 @@ def largest_component_bbox(fg: torch.Tensor) -> BBoxResult:
     i32 = torch.int32
     return BBoxResult(x=x0.to(i32), y=y0.to(i32), w=(x1 - x0 + 1).to(i32),
                       h=(y1 - y0 + 1).to(i32), found=fg.any(),
-                      area=areas[best])
+                      area=areas[best]), sweeps_fill + sweeps_lab

@@ -5,10 +5,11 @@ peakutils.gaussian_fit -> scipy.optimize.curve_fit).  Fits
 ``ampl * exp(-(t-center)^2 / (2 dev^2))`` to every masked window of a
 (B, W) batch at once.  The JAX package runs ``vmap`` of a ``while_loop``;
 here that is one masked loop over the batch: a lane stops updating once it
-is done, and the loop stops when no lane is live (one ``.any()`` host check
-per iteration).  Lanes that can never converge (fewer than 3 valid points,
-non-finite initial cost) start done.  Only the analytic jacobian is
-ported; the forward-difference variant is reached by no production path.
+is done, and the loop stops when no lane is live (one host read of the live
+lanes' count per iteration).  Lanes that can never converge (fewer than 3
+valid points, non-finite initial cost) start done.  Only the analytic
+jacobian is ported; the forward-difference variant is reached by no
+production path.
 
 The f32 loop stops at a loose ftol (3.45e-4), so on noisy windows its
 stopping point moves with last-ULP differences (XLA's and PyTorch's
@@ -21,6 +22,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from respmon_tpu_torch.utils.bench import span
 
 # Safeguarded Newton steps of the trust-region lambda solve per LM step.
 _TR_NEWTON_ITERS = 16
@@ -91,7 +94,16 @@ def gaussian_fit_single(t: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
 
 
 def _fit(t, y, mask, iters: int, ftol, xtol) -> GaussFit:
-    """The batched LM loop; a ``None`` tolerance is the dtype's default."""
+    """The batched LM loop in its ``bpm.fit`` span (one ``bpm.lm_step`` an
+    iteration); a ``None`` tolerance is the dtype's default."""
+    with span("bpm.fit") as rec:
+        return _fit_loop(t, y, mask, iters, ftol, xtol, rec)
+
+
+def _fit_loop(t, y, mask, iters: int, ftol, xtol, rec) -> GaussFit:
+    """``_fit``'s body; sets ``rec``'s counts: ``lanes`` live at the start,
+    ``steps`` run and ``live_lane_steps`` (live lanes summed over the
+    steps)."""
     dtype = y.dtype
     dev = y.device
     tol = 1.49e-8 if dtype == torch.float64 else 3.45e-4
@@ -199,16 +211,24 @@ def _fit(t, y, mask, iters: int, ftol, xtol) -> GaussFit:
 
     p, F, D, Delta = p0, F0, D0, Delta0
     done = (nvalid < 3) | ~torch.isfinite(F0)
-    for _ in range(iters):
+    lanes = steps = live_lane_steps = 0
+    for k in range(iters):
         live = ~done
-        if not bool(live.any()):
+        n_live = int(live.sum())
+        if k == 0:
+            lanes = n_live
+        if n_live == 0:
             break
-        p_n, F_n, D_n, Delta_n, hit = step(p, F, D, Delta)
-        p = torch.where(live[..., None], p_n, p)
-        F = torch.where(live, F_n, F)
-        D = torch.where(live[..., None], D_n, D)
-        Delta = torch.where(live, Delta_n, Delta)
-        done = done | (live & hit)
+        with span("bpm.lm_step"):
+            p_n, F_n, D_n, Delta_n, hit = step(p, F, D, Delta)
+            p = torch.where(live[..., None], p_n, p)
+            F = torch.where(live, F_n, F)
+            D = torch.where(live[..., None], D_n, D)
+            Delta = torch.where(live, Delta_n, Delta)
+            done = done | (live & hit)
+        steps += 1
+        live_lane_steps += n_live
+    rec.set(lanes=lanes, steps=steps, live_lane_steps=live_lane_steps)
 
     finite = torch.isfinite(p).all(dim=-1) & torch.isfinite(F)
     converged = done & finite & (nvalid >= 3)

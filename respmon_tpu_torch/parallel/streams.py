@@ -45,6 +45,7 @@ from respmon_tpu_torch.ops.dtype import ingest_frames
 from respmon_tpu_torch.parallel.mesh import Mesh, stream_sharding
 from respmon_tpu_torch.pipeline import bpm as bpm_mod
 from respmon_tpu_torch.pipeline import evm, motion, scan, streaming
+from respmon_tpu_torch.utils.bench import span
 
 logger = logging.getLogger(__name__)
 
@@ -98,8 +99,9 @@ class StreamStepResult(NamedTuple):
 
 def _estimate(states: motion.MeasureState, samples, coeffs, min_dist,
               cfg) -> StreamStepResult:
-    res = bpm_mod.estimate_bpm(states.data, states.t, states.count, coeffs,
-                               min_dist, cfg)
+    with span("fleet.estimate"):
+        res = bpm_mod.estimate_bpm(states.data, states.t, states.count,
+                                   coeffs, min_dist, cfg)
     ran = states.count > cfg.initialization_length
     return StreamStepResult(state=states, samples=samples, bpm=res.bpm,
                             has_bpm=res.has_bpm & ran, error=states.error)
@@ -113,8 +115,9 @@ def monitor_step_streams(states: motion.MeasureState, frames: torch.Tensor,
     step, then the BPM estimate of all S rings.  ``initialized=True``
     skips the first-frame corner detection (see
     ``motion.measure_step_batch``)."""
-    states, samples = motion.measure_step_batch(states, frames, spec,
-                                                initialized)
+    with span("fleet.motion"):
+        states, samples = motion.measure_step_batch(states, frames, spec,
+                                                    initialized)
     return _estimate(states, samples, coeffs, min_dist, cfg)
 
 
@@ -124,8 +127,9 @@ def monitor_step_streams_cached(states, cache, frames, spec, coeffs,
     """``monitor_step_streams`` with the carried prev-frame LK cache
     (``motion.FlowCache``): one pyramid build a step instead of two, bit
     for bit the same results.  Returns (result, new cache)."""
-    states, cache, samples = motion.measure_step_cached(
-        states, cache, frames, spec, initialized, cache_valid)
+    with span("fleet.motion"):
+        states, cache, samples = motion.measure_step_cached(
+            states, cache, frames, spec, initialized, cache_valid)
     return _estimate(states, samples, coeffs, min_dist, cfg), cache
 
 
@@ -591,26 +595,28 @@ class MultiStreamMonitor:
         stream's previous frame into ``stale_rows``: like the JAX package,
         the step advances every stream's t all the same."""
         assert self.states is not None, "calibrate() first"
-        dev = self._ingest(frames)
-        if stale is not None:
-            self.stale_rows += int(np.asarray(stale).sum())
-        initialized = not self._needs_init
-        if self.spec.method == "flow":
-            res, self._cache = monitor_step_streams_cached(
-                self._states, self._cache, dev, self.spec, self.coeffs,
-                self.min_dist, self.measure_cfg, initialized=initialized,
-                cache_valid=self._cache is not None)
-            self._states = res.state
-        else:
-            res = monitor_step_streams(self.states, dev, self.spec,
-                                       self.coeffs, self.min_dist,
-                                       self.measure_cfg,
-                                       initialized=initialized)
-            self.states = res.state
-        res = self._global_result(res)
-        self._needs_init = False
-        self._streaming_step(dev)
-        return res
+        with span("fleet.step"):
+            with span("fleet.ingest"):
+                dev = self._ingest(frames)
+            if stale is not None:
+                self.stale_rows += int(np.asarray(stale).sum())
+            initialized = not self._needs_init
+            if self.spec.method == "flow":
+                res, self._cache = monitor_step_streams_cached(
+                    self._states, self._cache, dev, self.spec, self.coeffs,
+                    self.min_dist, self.measure_cfg, initialized=initialized,
+                    cache_valid=self._cache is not None)
+                self._states = res.state
+            else:
+                res = monitor_step_streams(self.states, dev, self.spec,
+                                           self.coeffs, self.min_dist,
+                                           self.measure_cfg,
+                                           initialized=initialized)
+                self.states = res.state
+            res = self._global_result(res)
+            self._needs_init = False
+            self._streaming_step(dev)
+            return res
 
     def _streaming_step(self, dev) -> None:
         """The per-step half of the streaming-ROI mode: absorb this step's

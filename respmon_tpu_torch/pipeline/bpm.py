@@ -16,6 +16,7 @@ import torch
 
 from respmon_tpu_torch.config import MeasureConfig
 from respmon_tpu_torch.ops import filters, gaussfit, peaks
+from respmon_tpu_torch.utils import bench
 
 
 class BPMResult(NamedTuple):
@@ -51,10 +52,12 @@ def estimate_bpm(data: torch.Tensor, t: torch.Tensor, count: torch.Tensor,
     max_peaks = cfg.max_peaks
     count = torch.as_tensor(count, device=dev)
 
-    filtered = filters.filtfilt_masked(coeffs, data, count)
-    cand_idx, cand_mask = peaks.peak_indexes_masked(
-        filtered, count, min_dist, thres=cfg.peak_threshold,
-        max_peaks=max_peaks)
+    with bench.span("bpm.filter"):
+        filtered = filters.filtfilt_masked(coeffs, data, count)
+    with bench.span("bpm.peaks"):
+        cand_idx, cand_mask = peaks.peak_indexes_masked(
+            filtered, count, min_dist, thres=cfg.peak_threshold,
+            max_peaks=max_peaks)
 
     start = (n - count)[..., None]
     # Reference window clamping (base.py:319-323), including the quirk that

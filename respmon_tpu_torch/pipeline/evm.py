@@ -25,7 +25,7 @@ from respmon_tpu_torch.ops.dtype import float_to_uint8, uint8_to_float
 from respmon_tpu_torch.ops.fft_bandpass import (temporal_bandpass_fft,
                                                 temporal_bandpass_iir)
 from respmon_tpu_torch.ops.pyramid import pyr_up, pyramid_shapes
-from respmon_tpu_torch.utils.bench import wait_for
+from respmon_tpu_torch.utils.bench import span, wait_for
 
 logger = logging.getLogger(__name__)
 
@@ -58,6 +58,19 @@ def _band_laplacian_levels(vid: torch.Tensor, cfg: CalibrationConfig) \
 def _call(name, fn, *args):
     """Run one EVM stage (``_evm_stages``'s plain ``stage``)."""
     return fn(*args)
+
+
+# ``locate``'s span of each EVM stage.
+_STAGE_SPANS = {"create_laplacian_video_pyramid": "locate.pyramid",
+                "temporal_bandpass_filter": "locate.bandpass",
+                "collapse_laplacian_video_pyramid": "locate.collapse"}
+
+
+def _traced(name, fn, *args):
+    """A ``stage`` for ``_evm_stages`` (``locate``'s) that runs each stage
+    in its ``locate.*`` span."""
+    with span(_STAGE_SPANS[name]):
+        return fn(*args)
 
 
 def _timed(t_len: int):
@@ -177,7 +190,7 @@ def eulerian_magnification_bandpass_verbose(vid: torch.Tensor, fps: float,
 
 
 def _locate(vid: torch.Tensor, fps: float, cfg: CalibrationConfig,
-            stage=_call) -> LocateResult:
+            stage=_traced) -> LocateResult:
     if vid.dtype == torch.uint8:
         vid = uint8_to_float(vid)
     band, raw, shapes = _evm_stages(vid, fps, cfg, stage)

@@ -61,7 +61,7 @@ from respmon_tpu_torch.pipeline import bpm as bpm_mod
 from respmon_tpu_torch.pipeline import evm, motion, streaming
 from respmon_tpu_torch.runtime.feeder import FrameFeeder
 from respmon_tpu_torch.utils.bbox import reduce_bounding_box
-from respmon_tpu_torch.utils.bench import Benchmarker
+from respmon_tpu_torch.utils.bench import Benchmarker, span
 from respmon_tpu_torch.viz.ui import make_ui, overlay_keypoints
 
 logger = logging.getLogger(__name__)
@@ -70,9 +70,11 @@ logger = logging.getLogger(__name__)
 def _measure_and_estimate(state, frame, spec, coeffs, min_dist, cfg):
     """One live-path frame: the motion step, then the BPM estimate of the
     new signal ring (one unbatched window)."""
-    new_state, sample = motion.measure_step(state, frame, spec)
-    res = bpm_mod.estimate_bpm(new_state.data, new_state.t, new_state.count,
-                               coeffs, min_dist, cfg)
+    with span("monitor.motion"):
+        new_state, sample = motion.measure_step(state, frame, spec)
+    with span("monitor.estimate"):
+        res = bpm_mod.estimate_bpm(new_state.data, new_state.t,
+                                   new_state.count, coeffs, min_dist, cfg)
     return new_state, sample, res
 
 
@@ -278,42 +280,45 @@ class RespiratoryMonitor:
 
     def step(self) -> bool:
         """One loop iteration.  Returns False at end of stream."""
-        self.loop_start_time = time.time()
+        with span("monitor.step"):
+            self.loop_start_time = time.time()
 
-        self.benchmarker.tick_start("Frame Capture")
-        frame = self._next_frame()
-        if frame is None:
-            return False
-        self.current_frame = frame
-        self.benchmarker.tick_end("Frame Capture")
+            self.benchmarker.tick_start("Frame Capture")
+            with span("monitor.capture"):
+                frame = self._next_frame()
+            if frame is None:
+                return False
+            self.current_frame = frame
+            self.benchmarker.tick_end("Frame Capture")
 
-        skip_ui_and_sync = False
-        if self.state == "initialize":
-            self._initialize()
-            self.state = "calibration"
-        elif self.state == "calibration":
-            skip_ui_and_sync = self._calibration_step(frame)
-        elif self.state == "measure":
-            self._measure_frame(frame)
-        elif self.state == "error":
-            # Streaming-ROI mode keeps the rings warm through the error
-            # wait (the frames are captured anyway), so recovery can
-            # localize from them (see _calibration_step's warm path).
-            if (self.config.streaming_roi
-                    and self._streaming_state is not None):
-                self._streaming_absorb(self._ingest(frame), "error")
-            if time.time() - self.reset_start_time >= \
-                    self.config.error_reset_delay:
-                logger.info("Benchmark Report...\r\n"
-                            + self.benchmarker.get_report())
-                self.reset()
+            skip_ui_and_sync = False
+            if self.state == "initialize":
+                self._initialize()
                 self.state = "calibration"
+            elif self.state == "calibration":
+                skip_ui_and_sync = self._calibration_step(frame)
+            elif self.state == "measure":
+                with span("monitor.measure"):
+                    self._measure_frame(frame)
+            elif self.state == "error":
+                # Streaming-ROI mode keeps the rings warm through the error
+                # wait (the frames are captured anyway), so recovery can
+                # localize from them (see _calibration_step's warm path).
+                if (self.config.streaming_roi
+                        and self._streaming_state is not None):
+                    self._streaming_absorb(self._ingest(frame), "error")
+                if time.time() - self.reset_start_time >= \
+                        self.config.error_reset_delay:
+                    logger.info("Benchmark Report...\r\n"
+                                + self.benchmarker.get_report())
+                    self.reset()
+                    self.state = "calibration"
 
-        if not skip_ui_and_sync:
-            self.update_ui()
-            self.sync_to_fps()
-        self.frames_processed += 1
-        return True
+            if not skip_ui_and_sync:
+                self.update_ui()
+                self.sync_to_fps()
+            self.frames_processed += 1
+            return True
 
     def _next_frame(self):
         """Pull the next frame: directly from the capture, or — on the live
@@ -354,27 +359,28 @@ class RespiratoryMonitor:
 
     def reset(self):
         """Clear all buffers and restart calibration (base.py:515-533)."""
-        self.state = "initialize"
-        for b in self.buffers:
-            b.clear()
-        self.ui.clear_plots()
-        self.filtered_data = []
-        self.peak_indices = []
-        self.peak_times = []
-        self.calibration_buffer_idx = 0
-        self._measure_state = None
-        self.cropped_image = None
-        self.motion_key_points = None
-        # Streaming-ROI mode: the rings SURVIVE the reset (kept
-        # fps-contiguous through the error wait) so the next calibration
-        # can localize from them at once; otherwise the reference's cold
-        # reset applies.
-        if not self.config.streaming_roi:
-            self._streaming_state = None
-            self._streaming_tick = 0
-            self._streaming_count = 0
-        if self._recorder is not None:
-            self._recorder.release_video()
+        with span("monitor.reset"):
+            self.state = "initialize"
+            for b in self.buffers:
+                b.clear()
+            self.ui.clear_plots()
+            self.filtered_data = []
+            self.peak_indices = []
+            self.peak_times = []
+            self.calibration_buffer_idx = 0
+            self._measure_state = None
+            self.cropped_image = None
+            self.motion_key_points = None
+            # Streaming-ROI mode: the rings SURVIVE the reset (kept
+            # fps-contiguous through the error wait) so the next calibration
+            # can localize from them at once; otherwise the reference's cold
+            # reset applies.
+            if not self.config.streaming_roi:
+                self._streaming_state = None
+                self._streaming_tick = 0
+                self._streaming_count = 0
+            if self._recorder is not None:
+                self._recorder.release_video()
 
     def detect_errors(self) -> bool:
         """True when the newest motion sample signals lost tracking.  The
@@ -424,7 +430,8 @@ class RespiratoryMonitor:
         if self._warm_calibration_available():
             return self._warm_calibration_step(frame)
         if self.calibration_buffer_idx < self.calibration_buffer_target_length:
-            self.calibration_buffer[self.calibration_buffer_idx] = frame
+            with span("monitor.buffer"):
+                self.calibration_buffer[self.calibration_buffer_idx] = frame
             self.calibration_buffer_idx += 1
             return False
 
@@ -436,11 +443,13 @@ class RespiratoryMonitor:
 
         self.benchmarker.tick_start("Calibration Measurement")
         locate_fn = evm.locate_verbose if self.verbose_evm else evm.locate
-        buffer_dev = self._ingest(self.calibration_buffer)
-        result = locate_fn(buffer_dev, float(self.fps),
-                           self.config.calibration)
-        # The host read waits for the device, so the tag times execution.
-        found, x, y, w, h = _bbox_to_host(result)
+        with span("monitor.calibrate"):
+            buffer_dev = self._ingest(self.calibration_buffer)
+            result = locate_fn(buffer_dev, float(self.fps),
+                               self.config.calibration)
+            # The host read waits for the device, so the tag times
+            # execution.
+            found, x, y, w, h = _bbox_to_host(result)
         self.benchmarker.tick_end("Calibration Measurement")
 
         if not found:
@@ -575,15 +584,17 @@ class RespiratoryMonitor:
         # below, which needs a ring of one sample, cannot fire.
         init_len = self.config.measure.initialization_length
         consume = len(self.data) + 1 > init_len
-        frame_dev = self._ingest(frame)
+        with span("monitor.ingest"):
+            frame_dev = self._ingest(frame)
         if consume:
             new_state, sample, bpm_res = _measure_and_estimate(
                 self._measure_state, frame_dev, spec, self._lowpass,
                 max(self.peak_minimum_sample_distance, 1),
                 self.config.measure)
         else:
-            new_state, sample = motion.measure_step(
-                self._measure_state, frame_dev, spec)
+            with span("monitor.motion"):
+                new_state, sample = motion.measure_step(
+                    self._measure_state, frame_dev, spec)
         self._measure_state = new_state
         located = None
         if self.config.streaming_roi and self._streaming_state is not None:
@@ -600,47 +611,49 @@ class RespiratoryMonitor:
         if located is not None:
             wanted += [located.found, located.x, located.y, located.w,
                        located.h]
-        host = _to_host(*wanted)
+        with span("monitor.host_read"):
+            host = _to_host(*wanted)
         if located is not None:
             self._relock(frame_dev, *(int(v) for v in host[-5:]))
             host = host[:-5]
-        sample_val = float(host[0])
-        error = bool(host[1])
+        with span("monitor.mirror"):
+            sample_val = float(host[0])
+            error = bool(host[1])
 
-        self.data.append(sample_val)
-        self.t.append(0.0 if len(self.t) == 0
-                      else self.t[-1] + 1.0 / self.fps)
+            self.data.append(sample_val)
+            self.t.append(0.0 if len(self.t) == 0
+                          else self.t[-1] + 1.0 / self.fps)
 
-        # Host mirrors for the UI / API surface.  uint8 ingest converts the
-        # host crop via the reference chain (base.py:230-233) so the
-        # observable ``cropped_image`` stays float [0, 1] in either mode.
-        crop_host = frame[self.y:self.y + self.h, self.x:self.x + self.w]
-        self.cropped_image = (
-            np.asarray(crop_host, np.float64) * (1.0 / 255.0)
-            if self.ingest_uint8 else np.asarray(crop_host))
-        if flow:
-            pts, valid = host[2], host[3]
-            self.motion_key_points = pts[valid].reshape(-1, 1, 2)
+            # Host mirrors for the UI / API surface.  uint8 ingest converts the
+            # host crop via the reference chain (base.py:230-233) so the
+            # observable ``cropped_image`` stays float [0, 1] in either mode.
+            crop_host = frame[self.y:self.y + self.h, self.x:self.x + self.w]
+            self.cropped_image = (
+                np.asarray(crop_host, np.float64) * (1.0 / 255.0)
+                if self.ingest_uint8 else np.asarray(crop_host))
+            if flow:
+                pts, valid = host[2], host[3]
+                self.motion_key_points = pts[valid].reshape(-1, 1, 2)
 
-        if self.config.save_all_data:
-            # uint8 ingest records the ORIGINAL camera bytes (strictly more
-            # faithful than the float round-trip, which can lose 1 code on
-            # bytes whose f->u8 trunc lands just below the integer).
-            crop_u8 = np.asarray(crop_host) if self.ingest_uint8 else \
-                np.clip(np.trunc(self.cropped_image * 255.0),
-                        0, 255).astype(np.uint8)
-            self._recorder.write(crop_u8, self.t[-1], sample_val)
-            self.all_data.append((self.t[-1], sample_val))
+            if self.config.save_all_data:
+                # uint8 ingest records the ORIGINAL camera bytes (strictly more
+                # faithful than the float round-trip, which can lose 1 code on
+                # bytes whose f->u8 trunc lands just below the integer).
+                crop_u8 = np.asarray(crop_host) if self.ingest_uint8 else \
+                    np.clip(np.trunc(self.cropped_image * 255.0),
+                            0, 255).astype(np.uint8)
+                self._recorder.write(crop_u8, self.t[-1], sample_val)
+                self.all_data.append((self.t[-1], sample_val))
 
-        # First-flow-frame "no keypoints" trigger fires immediately
-        # (base.py:367-368), unlike NaN detection which waits for the
-        # initialization length (base.py:489-494).
-        if error and not math.isnan(sample_val) and len(self.data) == 1:
-            self.trigger_error("No motion key points found.")
-        elif len(self.data) > init_len:
-            self._consume_bpm(*host[-5:])
-            if not self.disable_error_detection and self.detect_errors():
-                self.trigger_error("error detection found poor signal")
+            # First-flow-frame "no keypoints" trigger fires immediately
+            # (base.py:367-368), unlike NaN detection which waits for the
+            # initialization length (base.py:489-494).
+            if error and not math.isnan(sample_val) and len(self.data) == 1:
+                self.trigger_error("No motion key points found.")
+            elif len(self.data) > init_len:
+                self._consume_bpm(*host[-5:])
+                if not self.disable_error_detection and self.detect_errors():
+                    self.trigger_error("error detection found poor signal")
         self.benchmarker.tick_end("Measurement Loop")
 
     def _streaming_roi_step(self, frame_dev):
