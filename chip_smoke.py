@@ -8,8 +8,12 @@ per source, into ``build/``; the build line also holds what ptxas says of
 each kernel), checks each against its plain
 PyTorch version on the card (the stencil kernels bit for bit, along the
 launches their plan makes for each parity geometry; the band kernels also
-on dense, all-zero-tile, unaligned and minuend operands), and drives the
-whole-clip path
+on dense, all-zero-tile, unaligned and minuend operands; the Gaussian LM
+fit's kernel at the single monitor's and the 64-stream fleet's shapes,
+with its float64 refit, bit for bit against the plain loop,
+``phase_gaussfit``; the
+monitor and fleet phases count its launches, two a single estimate and one
+a fleet estimate), and drives the whole-clip path
 ``process_clip`` at 640x480 in average mode and in flow mode (Shi-Tomasi
 corners, pyramidal LK, 2x2 PCA), one 640x480 calibration with the
 band-matrix pyramid (K3) in place of the stencil one (K1), and one 1080p
@@ -181,17 +185,57 @@ def bound(n_bytes: float, flops: float) -> dict:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from respmon_tpu_torch.ops import pyramid_cuda, pyramid_mm
+    from respmon_tpu_torch.ops import gaussfit, pyramid_cuda, pyramid_mm
 
     pyramid_cuda.reset_launches()
     pyramid_mm.reset_launches()
+    gaussfit.reset_launches()
 
 
 def read_launches() -> dict:
-    """Every kernel's launch count since ``reset_launches``."""
-    from respmon_tpu_torch.ops import pyramid_cuda, pyramid_mm
+    """Every kernel's launch count since ``reset_launches``: the stencil
+    and band kernels by name, the Gaussian fit's as ``gauss_fit``."""
+    from respmon_tpu_torch.ops import gaussfit, pyramid_cuda, pyramid_mm
 
-    return {**pyramid_cuda.LAUNCHES, **pyramid_mm.LAUNCHES}
+    return {**pyramid_cuda.LAUNCHES, **pyramid_mm.LAUNCHES,
+            "gauss_fit": gaussfit.LAUNCHES}
+
+
+def pyramid_launches(launches: dict) -> dict:
+    """The stencil and band kernels' counts of a ``read_launches`` dict."""
+    return {k: n for k, n in launches.items() if k != "gauss_fit"}
+
+
+class count_estimates:
+    """While open, counts the BPM estimates (``n``): the calls of
+    ``pipeline.bpm.estimate_bpm``, through which the monitor and the fleet
+    estimate."""
+
+    def __enter__(self):
+        from respmon_tpu_torch.pipeline import bpm
+
+        self._bpm, self._estimate, self.n = bpm, bpm.estimate_bpm, 0
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self._estimate(*args, **kwargs)
+
+        bpm.estimate_bpm = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._bpm.estimate_bpm = self._estimate
+        return False
+
+
+def check_fit_launches(launches, estimates: int, per_estimate: int,
+                       what: str) -> None:
+    """A run that made ``estimates`` BPM estimates launched the Gaussian
+    fit's kernel ``per_estimate`` times each (the float32 fit, and the
+    float64 refit where the configuration runs it)."""
+    check(estimates > 0 and launches["gauss_fit"] == per_estimate * estimates,
+          f"{what}: {per_estimate} gauss_fit launches an estimate, "
+          f"{launches['gauss_fit']} over {estimates} estimates")
 
 
 def check_k1_path(launches, what: str) -> None:
@@ -240,7 +284,7 @@ def phase_device():
 
 
 def phase_build():
-    from respmon_tpu_torch.ops import _build, pyramid_cuda, pyramid_mm
+    from respmon_tpu_torch.ops import _build, gaussfit, pyramid_cuda, pyramid_mm
 
     root = _build.BUILD_DIR.parent.parent
 
@@ -261,12 +305,13 @@ def phase_build():
                           if "registers" in ln or "spill" in ln
                           or "Compiling" in ln]}
 
-    # One nvcc per source, both started together.
-    names = ("pyramid", "band_mm")
+    # One nvcc per source, all started together.
+    names = ("pyramid", "band_mm", "gaussfit")
     with ThreadPoolExecutor(len(names)) as pool:
         libraries = dict(zip(names, pool.map(build, names)))
     pyramid_cuda._lib()
     pyramid_mm._lib()
+    gaussfit._lib()
     emit({"phase": "build", "libraries": libraries})
 
 
@@ -282,6 +327,148 @@ def phase_widen(dev):
     bad = int((got.view(np.uint32) != want.view(np.uint32)).sum())
     emit({"phase": "widen", "bytes": 256, "mismatches": bad})
     check(bad == 0, "uint8_to_float is the f64 chain's f32 image")
+
+
+GAUSSFIT_CU = "respmon_tpu_torch/csrc/gaussfit.cu"
+GAUSSFIT_STREAMS = 64     # the 64-stream fleet: (64 x 12, 20) lanes
+# One thread's issue rate: one operation a cycle at the H100 SXM's
+# highest SM clock (1980 MHz).
+SM_CLOCK_HZ = 1.98e9
+
+
+def _fit_windows(dev, streams):
+    """The float32 fit's and the float64 refit's inputs that
+    ``estimate_bpm`` makes from ``streams`` full 128-sample rings at 10 fps
+    (12 candidate lanes of 20 samples a ring): (f32 args, f64 args)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from respmon_tpu_torch.config import MeasureConfig
+    from respmon_tpu_torch.io.synthetic import motion_trace
+    from respmon_tpu_torch.ops import filters, gaussfit
+    from respmon_tpu_torch.pipeline import bpm
+
+    rings = [motion_trace(num_samples=128, fps=FPS, bpm=12.0 + 0.25 * k,
+                          noise=0.1, seed=k) for k in range(streams)]
+    t = torch.tensor(np.stack([r[0] for r in rings]) + 30.0,
+                     dtype=torch.float32, device=dev)
+    y = torch.tensor(np.stack([r[1] for r in rings]), dtype=torch.float32,
+                     device=dev)
+    count = torch.full((streams,), 128, dtype=torch.int32, device=dev)
+    cfg = MeasureConfig()
+    if streams > 1:   # the fleet runs without the float64 refit
+        cfg = dataclasses.replace(cfg, f64_refine=False)
+    seen = []
+    fit = gaussfit.gaussian_fit_batch
+
+    def capture(*args, **kw):
+        seen.append(args)
+        return fit(*args, **kw)
+
+    gaussfit.gaussian_fit_batch = capture
+    try:
+        bpm.estimate_bpm(y, t, count, filters.design_butter_lowpass(
+            0.5, FPS, cfg.filter_order), int(FPS), cfg)
+    finally:
+        gaussfit.gaussian_fit_batch = fit
+    torch.cuda.synchronize()
+    return seen[0], (seen[1] if len(seen) > 1 else None)
+
+
+def phase_gaussfit(dev):
+    """The Gaussian LM fit's kernel (``csrc/gaussfit.cu``) at the main
+    path's shapes: the single monitor's float32 fit (12, 20) and its
+    float64 refit, the fleet's float32 fit (768, 20), each against the
+    plain loop on the card: one launch a fit, and every lane's parameters,
+    cost and converged flag and the LM counts the plain loop's bit for bit
+    (the kernel sums in the card's order at these shapes); timed beside
+    the plain loop and the bound.  The refit is timed as the estimate calls it (only the suspect
+    lanes unmasked) and with every lane refit.  Returns the kernel rows,
+    each naming the main path (``path``) whose launches ``main`` reads."""
+    import torch
+
+    from respmon_tpu_torch.config import MeasureConfig
+    from respmon_tpu_torch.ops import gaussfit
+    from respmon_tpu_torch.utils import bench
+
+    cut = MeasureConfig().gaussian_cutoff
+    single32, single64 = _fit_windows(dev, 1)
+    fleet32, _ = _fit_windows(dev, GAUSSFIT_STREAMS)
+    t32, y32, m32 = single32
+    every_lane64 = (t32.double(), y32.double(), m32)
+
+    def plain(t, y, m, iters=200):
+        with bench.span("bpm.fit") as rec:
+            return gaussfit._fit_loop(t, y, m, iters, None, None, rec)
+
+    def recorded(fn):
+        """``fn()``'s result and the counts of the bpm.fit span it
+        closed last."""
+        bench.enable()
+        try:
+            out = fn()
+        finally:
+            bench.disable()
+        return out, dict(bench._ring[-1].counts)
+
+    rows = []
+    for name, args, iters, path in (
+            ("single_f32", single32, 200, "monitor_640x480_flow"),
+            ("fleet_f32", fleet32, 200, "fleet_1080p_streaming"),
+            ("single_f64_refit", single64[:3], 500, "monitor_640x480_flow"),
+            ("single_f64_every_lane", every_lane64, 500,
+             "monitor_640x480_flow")):
+        t, y, m = args
+        before = gaussfit.LAUNCHES
+        got = gaussfit.gaussian_fit_batch(t, y, m, iters=iters)
+        launches = gaussfit.LAUNCHES - before
+        want, plain_counts = recorded(lambda: plain(t, y, m, iters))
+        _, counts = recorded(lambda: gaussfit.gaussian_fit_batch(
+            t, y, m, iters=iters))
+        same = torch.ones_like(got.converged)
+        for g, w in zip(got, want):
+            same &= (g == w) | (g != g) & (w != w)   # NaN equal to NaN
+        lanes, w = m.numel() // m.shape[-1], m.shape[-1]
+        item = y.element_size()
+        n_bytes = lanes * w * (2 * item + 1) + lanes * (4 * item + 1 + 4)
+        # The slowest lane's chain, at least: each iteration's two passes
+        # over W (38 operations a sample for the residual, Jacobian and
+        # normal sums, 9 for the trial cost), exp and division counted as
+        # one operation each, the Newton steps not counted.
+        chain_s = counts["steps"] * w * 47 / SM_CLOCK_HZ
+        by_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        by_chain = chain_s * 1e3
+        _, plain_s = wall_s(lambda: plain(t, y, m, iters))
+        rows.append({
+            "name": f"gauss_fit_{str(y.dtype)[6:]}", "route": "cuda",
+            "source": GAUSSFIT_CU,
+            "replaces": "none: the JAX package's vmap of while_loop in XLA",
+            "case": name, "shape": list(m.shape), "iters": iters,
+            "path": path, "launches_a_fit": launches, "lm_counts": counts,
+            "plain_lm_counts": plain_counts,
+            "kept_lanes": int((got.converged & (got.dev < cut)).sum()),
+            "lanes": lanes, "lanes_bit_equal": int(same.sum()),
+            "ms": cuda_ms(lambda: gaussfit.gaussian_fit_batch(
+                t, y, m, iters=iters), calls=KERNEL_CALLS),
+            "ms_one_call": cuda_ms(lambda: gaussfit.gaussian_fit_batch(
+                t, y, m, iters=iters)),
+            "plain_ms": plain_s * 1e3, "bound_ms": max(by_bytes, by_chain),
+            "bound_by": "bytes" if by_bytes >= by_chain
+                        else "the slowest lane's serial chain",
+            "library_ms": None})
+    emit({"phase": "gaussfit", "rows": rows})
+    for r in rows:
+        case = r["case"]
+        check(r["launches_a_fit"] == 1, f"{case}: one launch a fit")
+        check(r["lanes_bit_equal"] == r["lanes"],
+              f"{case}: {r['lanes_bit_equal']} of {r['lanes']} lanes the "
+              f"plain loop's bit for bit")
+        check(r["lm_counts"] == r["plain_lm_counts"],
+              f"{case}: the kernel's LM counts {r['lm_counts']} are the "
+              f"plain loop's {r['plain_lm_counts']}")
+    return rows
 
 
 def phase_kernels(dev):
@@ -811,7 +998,8 @@ def phase_slice(frames):
     check_k1_path(launches, "the average slice")
     with pyramid_route():
         plain = scan.process_clip(frames, FPS, cfg)
-    check(read_launches() == launches, "plain run launched nothing")
+    check(pyramid_launches(read_launches()) == pyramid_launches(launches),
+          "plain run launched no stencil or band kernel")
     rel = _same_run(res, plain, "640x480 kernels vs plain")
 
     m = res.measure
@@ -1092,7 +1280,8 @@ class split_timer:
     float32 fit and the float64 refit of wild fits), and in streaming-ROI
     mode each absorb into the rings, each localize over them and each
     re-lock, each to the end of its device work; and count each fit's LM
-    steps (each step solves ``2 * _TR_NEWTON_ITERS + 2`` 3x3 systems).
+    steps (the ``steps`` count of its ``bpm.fit`` span: the most any lane
+    ran).
     With ``fleet``, the same of the fleet's batched functions (the motion
     step of S streams, with or without the carried LK cache; the absorb of
     S frames; the localize of S rings; the masked re-lock).
@@ -1104,23 +1293,28 @@ class split_timer:
                         "gauss_fit_f32": [], "gauss_fit_f64": [],
                         "absorb": [], "localize": [], "relock": []}
         self.lm_steps = {"gauss_fit_f32": [], "gauss_fit_f64": []}
-        self._solves = 0
 
     def _timed(self, fn, name_of):
         import torch
 
-        from respmon_tpu_torch.ops import gaussfit
+        from respmon_tpu_torch.utils import bench
 
         def timed(*args, **kwargs):
             name = name_of(args)
-            solves, t0 = self._solves, time.perf_counter()
-            out = fn(*args, **kwargs)
+            counted = name in self.lm_steps
+            if counted:
+                bench.enable()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                if counted:
+                    bench.disable()
             torch.cuda.synchronize()
             self.seconds[name].append(time.perf_counter() - t0)
-            if name in self.lm_steps:
-                self.lm_steps[name].append(
-                    (self._solves - solves)
-                    // (2 * gaussfit._TR_NEWTON_ITERS + 2))
+            if counted:
+                # The newest record is the fit's own bpm.fit span.
+                self.lm_steps[name].append(bench._ring[-1].counts["steps"])
             return out
         return timed
 
@@ -1144,16 +1338,8 @@ class split_timer:
         timed.append((bpm, "estimate_bpm", "estimate_bpm"))
         self._saved = [(module, name, getattr(module, name))
                        for module, name, _ in timed]
-        self._saved += [(gaussfit, "gaussian_fit_batch",
-                         gaussfit.gaussian_fit_batch),
-                        (gaussfit, "_solve3", gaussfit._solve3)]
-        solve3 = gaussfit._solve3
-
-        def counted_solve3(*args, **kwargs):
-            self._solves += 1
-            return solve3(*args, **kwargs)
-
-        gaussfit._solve3 = counted_solve3
+        self._saved.append((gaussfit, "gaussian_fit_batch",
+                            gaussfit.gaussian_fit_batch))
         for module, name, tag in timed:
             setattr(module, name, self._timed(getattr(module, name),
                                               lambda a, tag=tag: tag))
@@ -1210,11 +1396,15 @@ def phase_monitor(frames, cfg=None, device=None):
         clip = scan.process_clip(frames, FPS, mcfg, device=device)
         mon = make_monitor(frames, method, mcfg, device=device)
         reset_launches()
-        steps = drive_monitor(mon)
+        with count_estimates() as estimates:
+            steps = drive_monitor(mon)
         launches[method] = read_launches()
         calibrations = len(mon.benchmarker.ticks["Calibration Measurement"])
         check_k1_calibrations(launches[method], calibrations,
                               f"the {method} monitor")
+        check_fit_launches(launches[method], estimates.n,
+                           2 if mcfg.measure.f64_refine else 1,
+                           f"the {method} monitor")
         check(calibrations == 1, f"{method} monitor calibrated once")
         check(mon.state == "measure", f"{method} monitor ends measuring")
         roi = (mon.x, mon.y, mon.w, mon.h)
@@ -1227,7 +1417,8 @@ def phase_monitor(frames, cfg=None, device=None):
         clip_bpm = clip.measure.bpm.cpu().numpy()[has]
         row = {"phase": f"monitor_{method}", "frames": list(frames.shape),
                "roi": list(roi), "launches": launches[method],
-               "calibrations": calibrations, "bpm_count": len(freq),
+               "calibrations": calibrations, "estimates": estimates.n,
+               "bpm_count": len(freq),
                "last_bpm": float(freq[-1]),
                "process_clip_final_bpm": clip.final_bpm}
         if method == "average":
@@ -1859,6 +2050,12 @@ def check_k1_fleet(launches, mon, what: str) -> None:
           f"absorbs), each {planned}: {launches}")
 
 
+def _fleet_fits(cfg) -> int:
+    """The Gaussian fits of one fleet estimate: the float32 fit, and the
+    float64 refit only with ``fleet_f64_refine``."""
+    return 2 if cfg.fleet_f64_refine and cfg.measure.f64_refine else 1
+
+
 def phase_fleet(clips, cfg=None, device=None, bpms=FLEET_BPMS):
     """The multi-stream fleet in flow mode on the 4 x 640x480 u8 clips (a
     host array, staged on the device first): ``calibrate`` on frames
@@ -1881,15 +2078,17 @@ def phase_fleet(clips, cfg=None, device=None, bpms=FLEET_BPMS):
     mon = streams.MultiStreamMonitor(cfg, None, tuple(frames.shape[2:]),
                                      FPS, device=device)
     reset_launches()
-    loc, cal_s = wall_s(lambda: mon.calibrate(frames[:, 1:cal_len + 1]))
-    rows, step_s = [], []
-    with split_timer(fleet=True) as split:
-        for f in range(cal_len + 2, frames.shape[1]):
-            t0 = time.perf_counter()
-            rows.append(fleet_step(mon, frames[:, f]))
-            step_s.append(time.perf_counter() - t0)
+    with count_estimates() as estimates:
+        loc, cal_s = wall_s(lambda: mon.calibrate(frames[:, 1:cal_len + 1]))
+        rows, step_s = [], []
+        with split_timer(fleet=True) as split:
+            for f in range(cal_len + 2, frames.shape[1]):
+                t0 = time.perf_counter()
+                rows.append(fleet_step(mon, frames[:, f]))
+                step_s.append(time.perf_counter() - t0)
     launches = read_launches()
     check_k1_fleet(launches, mon, "the fleet")
+    check_fit_launches(launches, estimates.n, _fleet_fits(cfg), "the fleet")
     boxes = loc.boxes.cpu().tolist()
     check(bool(loc.found.all()), f"every stream found an ROI: {boxes}")
     for i in range(s):
@@ -1909,7 +2108,7 @@ def phase_fleet(clips, cfg=None, device=None, bpms=FLEET_BPMS):
     emit({"phase": "fleet_640x480_flow", "streams": s,
           "frames": list(frames.shape), "boxes": boxes,
           "launches": launches, "locates": mon.locates,
-          "calibrate_s": cal_s, "step_ms": stats,
+          "estimates": estimates.n, "calibrate_s": cal_s, "step_ms": stats,
           "stream_frames_per_s": s / (stats["median"] / 1e3),
           "bpm_tail_median": tails, "fixture_bpm": list(bpms),
           "bpm_count": has.sum(axis=0).tolist(),
@@ -2201,11 +2400,14 @@ def phase_fleet_1080p(roi, buffer, device=None,
     check(bool((mons._streaming.count == cfg.calibration.buffer_length)
                .all()), "the 64 x 1080p rings are full after the warm start")
     reset_launches()
-    with split_timer(fleet=True) as splits:
+    with count_estimates() as estimates, \
+            split_timer(fleet=True) as splits:
         stream_steps = [steps(mons, 1, True, i)
                         for i in range(mons.cfg.streaming_interval)]
     launches = read_launches()
     check_k1_fleet(launches, mons, "the 64 x 1080p streaming fleet")
+    check_fit_launches(launches, estimates.n, _fleet_fits(mons.cfg),
+                       "the 64 x 1080p streaming fleet")
     ring0 = streams.init_fleet_streaming((h_f, w_f), cfg.calibration, s,
                                          device=device)
     got = streaming.streaming_absorb_batch(ring0, batches[0],
@@ -2235,6 +2437,7 @@ def phase_fleet_1080p(roi, buffer, device=None,
                                            for x in stream_steps[:-1]],
                         "update_step_ms": stream_steps[-1] * 1e3,
                         "relocks": mons.relocks, "launches": launches,
+                        "estimates": estimates.n,
                         "split_ms": rep,
                         "peak_mem_gb": torch.cuda.max_memory_allocated()
                         / 1e9 if dev.type == "cuda" else None},
@@ -2764,7 +2967,8 @@ def phase_examples(device=None):
             planned = _planned_demo_launches(name, args)
             got = {k: counts[k] for k in planned}
             check(got == planned and not any(
-                v for k, v in counts.items() if k not in planned),
+                v for k, v in pyramid_launches(counts).items()
+                if k not in planned),
                 f"{name} launched K1 as its locates plan ({planned}): "
                 f"{counts}")
             row["launches"] = counts
@@ -2901,9 +3105,9 @@ def phase_bench(device=None, modes=BENCH_MODES):
     headline's BPM tail lies within 1 of its 18 BPM; the corpus's has-BPM
     decisions all equal the scipy chain's, as the JAX estimator's did on
     the full corpus.  Every K1 call of a mode launched what its plan says
-    (``k1_plans``), no other kernel ran, and the modes that calibrate or
-    absorb ran K1: the 1080p unit of ``--multistream`` its A (d = 1), the
-    first level of the 1080p plan and K2's port.  Returns each mode's
+    (``k1_plans``), no other stencil or band kernel ran, and the modes
+    that calibrate or absorb ran K1: the 1080p unit of ``--multistream``
+    its A (d = 1), the first level of the 1080p plan and K2's port.  Returns each mode's
     launches, by path."""
     import contextlib
     import io
@@ -2927,9 +3131,10 @@ def phase_bench(device=None, modes=BENCH_MODES):
         check(set(line) == want, f"bench {name} has bench.py's keys and "
               f"the device: {sorted(set(line) ^ want)} differ")
         check(_finite_numbers(line), f"bench {name}: finite numbers {line}")
-        expected = {k: k1.planned.get(k, 0) for k in counts}
-        check(counts == expected, f"bench {name}: every K1 call launched "
-              f"its plan ({expected}): {counts}")
+        k_counts = pyramid_launches(counts)
+        expected = {k: k1.planned.get(k, 0) for k in k_counts}
+        check(k_counts == expected, f"bench {name}: every K1 call launched "
+              f"its plan ({expected}): {k_counts}")
         if fn_name == "main_bpm_corpus":
             check(k1.calls == 0 and line["has_bpm_mismatch_rate"] == 0,
                   f"bench {name}: every has-BPM decision equals the scipy "
@@ -3191,6 +3396,7 @@ def main() -> int:
     card = timed(phase_device)
     timed(phase_build)
     timed(phase_widen, dev)
+    gaussfit_rows = timed(phase_gaussfit, dev)
     kernels, lap_path = timed(phase_kernels, dev)
     kernels += timed(phase_kernels_k3, dev)
     stream_rows, stream_1080p = timed(phase_streaming_kernels, dev)
@@ -3253,7 +3459,9 @@ def main() -> int:
     # just after.  ``launches`` is the count on the kernel's own path: the
     # flow slice for A (d = 2) and B, the 1080p locate for A (d = 1), the
     # L9/S1 parity run for lap_level_f32 (no default configuration takes
-    # its route), the K3 calibration for the band kernels.
+    # its route), the K3 calibration for the band kernels, the flow
+    # monitor (2 an estimate) and the 64 x 1080p streaming fleet (1 an
+    # estimate) for the Gaussian fit's rows (their ``path``).
     paths = {"slice_640x480": avg_launches, "flow_640x480": flow_launches,
              "k3_locate_640x480": k3_launches,
              "k1_parity_4x480x640_l9s1": lap_path,
@@ -3291,9 +3499,14 @@ def main() -> int:
         k["path"] = k.get("path", own_path[key])
         k["launches"] = paths[k["path"]][key]
         check(k["launches"] > 0, f"{k['name']} launched on its path")
+    for k in gaussfit_rows:
+        k["launches_by_path"] = {name: counts["gauss_fit"]
+                                 for name, counts in paths.items()}
+        k["launches"] = paths[k["path"]]["gauss_fit"]
+        check(k["launches"] > 0, f"{k['name']} launched on {k['path']}")
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - start,
           "budget_s": TIME_BUDGET_S})
-    emit({"kernels": kernels})
+    emit({"kernels": kernels + gaussfit_rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,30 +3,63 @@
 Port of ``respmon_tpu/ops/gaussfit.py`` (reference base.py:327 ->
 peakutils.gaussian_fit -> scipy.optimize.curve_fit).  Fits
 ``ampl * exp(-(t-center)^2 / (2 dev^2))`` to every masked window of a
-(B, W) batch at once.  The JAX package runs ``vmap`` of a ``while_loop``;
-here that is one masked loop over the batch: a lane stops updating once it
-is done, and the loop stops when no lane is live (one host read of the live
-lanes' count per iteration).  Lanes that can never converge (fewer than 3
-valid points, non-finite initial cost) start done.  Only the analytic
-jacobian is ported; the forward-difference variant is reached by no
-production path.
+(B, W) batch at once.  The JAX package runs ``vmap`` of a ``while_loop``.
+Here a CUDA tensor takes one launch of ``csrc/gaussfit.cu`` a fit, one
+thread a lane, each lane running to its own stop on the card; a CPU tensor
+takes the plain version, ``_fit_loop``: one masked loop over the batch in
+which a lane stops updating once it is done, and the loop stops when no
+lane is live (one host read of the live lanes' count per iteration).
+Lanes that can never converge (fewer than 3 valid points, non-finite
+initial cost) start done.  Only the analytic jacobian is ported; the
+forward-difference variant is reached by no production path.
 
 The f32 loop stops at a loose ftol (3.45e-4), so on noisy windows its
 stopping point moves with last-ULP differences (XLA's and PyTorch's
 ``exp`` differ): params may land ~1% from the JAX package's while the
-accept/reject decisions agree.
+accept/reject decisions agree.  The kernel does the plain loop's
+arithmetic in the card's order (its sums as PyTorch's reductions and
+cuBLAS sum them there), so that a wild fit, which wanders along its valley
+to wherever the last bits take it, ends where the plain loop's does.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from respmon_tpu_torch.utils.bench import span
 
-# Safeguarded Newton steps of the trust-region lambda solve per LM step.
+# Safeguarded Newton steps of the trust-region lambda solve per LM step,
+# in the plain loop and in csrc/gaussfit.cu (passed to each launch).
 _TR_NEWTON_ITERS = 16
+
+# Launches of csrc/gaussfit.cu, one a fit on a CUDA tensor.
+LAUNCHES = 0
+
+# The order in which the plain loop's J^T r (cuBLAS's batched gemv) sums
+# over W = 20 on an H100 under PyTorch 2.11 and CUDA 12.8, which cuBLAS
+# picks by the batch's size: (most lanes, (lanes, chunk, halving)) as
+# csrc/gaussfit.cu's GemvOrder takes it.  Read off the card at 12 to 3072
+# lanes; between two readings the next one's order is taken.
+_GEMV_W = 20
+_GEMV_ORDERS = {
+    torch.float32: ((120, (8, 4, 1)), (768, (2, 10, 0)), (1152, (4, 5, 0)),
+                    (2304, (2, 1, 0)), (None, (2, 10, 0))),
+    torch.float64: ((12, (4, 5, 1)), (768, (2, 1, 0)), (960, (2, 10, 0)),
+                    (1536, (2, 1, 0)), (None, (1, 1, 0))),
+}
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
 
 
 class GaussFit(NamedTuple):
@@ -94,10 +127,100 @@ def gaussian_fit_single(t: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
 
 
 def _fit(t, y, mask, iters: int, ftol, xtol) -> GaussFit:
-    """The batched LM loop in its ``bpm.fit`` span (one ``bpm.lm_step`` an
-    iteration); a ``None`` tolerance is the dtype's default."""
+    """The fit in its ``bpm.fit`` span: the plain loop for CPU tensors (one
+    ``bpm.lm_step`` span an iteration), the kernel for CUDA tensors; a
+    ``None`` tolerance is the dtype's default."""
     with span("bpm.fit") as rec:
-        return _fit_loop(t, y, mask, iters, ftol, xtol, rec)
+        if all(x.device.type == "cpu" for x in (t, y, mask)):
+            return _fit_loop(t, y, mask, iters, ftol, xtol, rec)
+        return _fit_cuda(t, y, mask, iters, ftol, xtol, rec)
+
+
+def _gemv_order(dtype, lanes: int, w: int) -> tuple:
+    """The kernel's order for J^T r's sum over W: the plain loop's on the
+    card where it was read (``_GEMV_ORDERS``), else in sample order."""
+    if w != _GEMV_W:
+        return (1, 1, 0)
+    for most, order in _GEMV_ORDERS[dtype]:
+        if most is None or lanes <= most:
+            return order
+
+
+def _tolerances(dtype, ftol, xtol):
+    """(ftol, xtol), a ``None`` one the dtype's sqrt(machine eps)."""
+    tol = 1.49e-8 if dtype == torch.float64 else 3.45e-4
+    return (tol if ftol is None else ftol), (tol if xtol is None else xtol)
+
+
+def _lib():
+    from respmon_tpu_torch.ops import _build
+
+    lib = _build.load("gaussfit")
+    if not getattr(lib, "_respmon_bound", False):
+        for fn in (lib.gauss_fit_f32, lib.gauss_fit_f64):
+            fn.argtypes = [_P, _P, _P] + [_I] * 7 + [_D, _D, _P, _P, _P, _P]
+            fn.restype = _I
+        lib._respmon_bound = True
+    return lib
+
+
+def _check_cuda(t, y, mask) -> None:
+    if y.device.type != "cuda" or t.device != y.device \
+            or mask.device != y.device:
+        raise ValueError(f"gaussfit: expected t, y and mask on one CUDA "
+                         f"device or all on the CPU, got {t.device}, "
+                         f"{y.device}, {mask.device}")
+    if y.dtype not in (torch.float32, torch.float64) or t.dtype != y.dtype:
+        raise TypeError(f"gaussfit: expected t and y of one float type "
+                        f"(float32 or float64), got {t.dtype}, {y.dtype}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"gaussfit: expected a bool mask, got {mask.dtype}")
+    if t.shape != y.shape or mask.shape != y.shape or y.ndim < 1 \
+            or y.shape[-1] < 1:
+        raise ValueError(f"gaussfit: expected t, y and mask of one (..., W) "
+                         f"shape with W >= 1, got {tuple(t.shape)}, "
+                         f"{tuple(y.shape)}, {tuple(mask.shape)}")
+    if not (t.is_contiguous() and y.is_contiguous()
+            and mask.is_contiguous()):
+        raise ValueError("gaussfit: expected contiguous t, y and mask")
+    if y.numel() // y.shape[-1] >= 2 ** 31:
+        raise ValueError(f"gaussfit: {y.numel() // y.shape[-1]} lanes "
+                         f"exceed the kernel's int32 lane index")
+
+
+def _fit_cuda(t, y, mask, iters: int, ftol, xtol, rec) -> GaussFit:
+    """``_fit``'s body on the card: one launch of ``csrc/gaussfit.cu`` on
+    the current stream, no synchronise.  While ``rec`` records, one host
+    read of the lanes' iteration counts sets the counts ``_fit_loop``
+    sets: ``lanes`` live at the start, ``steps`` (the most any lane ran,
+    what the lockstep loop would run) and ``live_lane_steps``."""
+    global LAUNCHES
+    _check_cuda(t, y, mask)
+    ftol, xtol = _tolerances(y.dtype, ftol, xtol)
+    batch, w = y.shape[:-1], y.shape[-1]
+    lanes = y.numel() // w
+    out = torch.empty((4, lanes), dtype=y.dtype, device=y.device)
+    converged = torch.empty(lanes, dtype=torch.bool, device=y.device)
+    steps = torch.empty(lanes, dtype=torch.int32, device=y.device)
+    if lanes:
+        fn = _lib().gauss_fit_f32 if y.dtype == torch.float32 \
+            else _lib().gauss_fit_f64
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = fn(t.data_ptr(), y.data_ptr(), mask.data_ptr(), lanes, w,
+                 iters, _TR_NEWTON_ITERS, *_gemv_order(y.dtype, lanes, w),
+                 ftol, xtol, out.data_ptr(), converged.data_ptr(),
+                 steps.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"gauss_fit launch failed: cudaError_t {err}")
+        LAUNCHES += 1
+    if rec.recording:
+        c = steps.cpu()
+        rec.set(lanes=int((c > 0).sum()),
+                steps=int(c.max()) if lanes else 0,
+                live_lane_steps=int(c.sum()))
+    ampl, center, dev, cost = (row.view(batch) for row in out)
+    return GaussFit(ampl=ampl, center=center, dev=dev,
+                    converged=converged.view(batch), cost=cost)
 
 
 def _fit_loop(t, y, mask, iters: int, ftol, xtol, rec) -> GaussFit:
@@ -106,9 +229,7 @@ def _fit_loop(t, y, mask, iters: int, ftol, xtol, rec) -> GaussFit:
     steps)."""
     dtype = y.dtype
     dev = y.device
-    tol = 1.49e-8 if dtype == torch.float64 else 3.45e-4
-    ftol = tol if ftol is None else ftol
-    xtol = tol if xtol is None else xtol
+    ftol, xtol = _tolerances(dtype, ftol, xtol)
     w = mask.to(dtype)
     nvalid = mask.sum(dim=-1)
     npts = t.shape[-1]

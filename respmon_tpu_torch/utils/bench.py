@@ -129,6 +129,7 @@ class _Off:
     does nothing, and a record whose counts go nowhere."""
 
     __slots__ = ()
+    recording = False   # a caller may skip work that only feeds counts
 
     def __enter__(self):
         return self
@@ -148,6 +149,7 @@ class _Span:
 
     __slots__ = ("name", "counts", "id", "parent", "step", "offset", "start",
                  "end", "_mirror")
+    recording = True
 
     def __init__(self, name: str, counts: dict):
         self.name = name

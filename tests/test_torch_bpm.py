@@ -127,6 +127,21 @@ def _fits(t, y, m, iters):
     return got, want
 
 
+def test_fit_on_neither_cpu_nor_cuda_raises():
+    # Off the CPU a fit launches the kernel or raises: no fallback to the
+    # plain loop.
+    t, y, m = (torch.from_numpy(a).to("meta")
+               for a in _windows(0, noisy=False, batch=4, width=8))
+    with pytest.raises(ValueError, match="CUDA"):
+        tgauss.gaussian_fit_batch(t, y, m)
+
+
+def test_reset_launches_zeroes_the_kernel_s_count(monkeypatch):
+    monkeypatch.setattr(tgauss, "LAUNCHES", 7)
+    tgauss.reset_launches()
+    assert tgauss.LAUNCHES == 0
+
+
 def _assert_params_close(got, want):
     conv = np.asarray(want.converged)
     for name in ("ampl", "center", "dev"):

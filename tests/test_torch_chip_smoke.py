@@ -25,11 +25,26 @@ def _u8_clip(num_frames):
     return chip_smoke.quantize(clip)
 
 
+def _count_fits(monkeypatch):
+    """Each Gaussian fit adds the one launch it makes on the card to
+    ``gaussfit.LAUNCHES`` (on CPU tensors it runs the plain loop)."""
+    from respmon_tpu_torch.ops import gaussfit
+
+    fit = gaussfit._fit
+
+    def counted(*args):
+        gaussfit.LAUNCHES += 1
+        return fit(*args)
+
+    monkeypatch.setattr(gaussfit, "_fit", counted)
+
+
 @pytest.fixture
 def cpu_stand_ins(monkeypatch):
-    """No device to synchronise; no kernel launches to count (the wrappers
+    """No device to synchronise; no stencil launches to count (the wrappers
     run their plain versions on CPU tensors): each calibration's check
-    records its arguments instead."""
+    records its arguments instead.  Each Gaussian fit counts its launch."""
+    _count_fits(monkeypatch)
     calls = []
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(chip_smoke, "check_k1_calibrations",
@@ -45,11 +60,14 @@ def test_monitor_and_feeder_phases_rehearse_on_the_cpu(cpu_stand_ins):
     launches, average_mon = chip_smoke.phase_monitor(frames, CFG, "cpu")
     assert set(launches) == {"average", "flow"}
     assert [n for n, _ in calls] == [1, 1]
-    assert all(v == 0 for _, got in calls for v in got.values())
+    assert all(v == 0 for _, got in calls
+               for v in chip_smoke.pyramid_launches(got).values())
     by_phase = {line["phase"]: line for line in lines}
     for method in ("average", "flow"):
         row = by_phase[f"monitor_{method}"]
         assert row["calibrations"] == 1 and row["bpm_count"] > 0
+        # The float32 fit and the float64 refit of every estimate.
+        assert row["launches"]["gauss_fit"] == 2 * row["estimates"] > 0
         assert len(row["calibration_step_ms"]) == 1
         # Frame 0 initialises, 64 calibrate, one is dropped at the locate.
         assert row["measured_step_ms"]["n"] == len(frames) - 64 - 2
@@ -109,9 +127,12 @@ def test_phases_fail_when_a_check_fails(cpu_stand_ins):
 @pytest.fixture
 def planned_launches(monkeypatch):
     """CPU stand-ins that count: each K1 call adds the launches its plan
-    makes on the card to ``pyramid_cuda.LAUNCHES``, so the phases' own
-    launch checks run; no device to synchronise."""
+    makes on the card to ``pyramid_cuda.LAUNCHES``, and each Gaussian fit
+    its one launch, so the phases' own launch checks run; no device to
+    synchronise."""
     from respmon_tpu_torch.ops import pyramid_cuda
+
+    _count_fits(monkeypatch)
 
     k1 = pyramid_cuda.laplacian_band_levels
 
@@ -258,6 +279,8 @@ def test_fleet_and_feeder_phases_rehearse_on_the_cpu(planned_launches):
     assert row["phase"] == "fleet_640x480_flow" and row["locates"] == 4
     # One K1 call per stream's locate (B alone at 120x160), none per step.
     assert launches["pyr_tail"] == 4
+    # One float32 fit an estimate: the fleet runs no float64 refit.
+    assert launches["gauss_fit"] == row["estimates"] > 0
     assert rows.shape == (70, 4, 4) and row["step_ms"]["n"] == 70
     assert row["split_ms"]["motion_step"]["n"] == 70
     assert min(row["bpm_count"]) >= 1
@@ -301,6 +324,7 @@ def test_fleet_streaming_and_1080p_phases_rehearse_on_the_cpu(
     assert row["streaming"]["warm_start_s"] > 0.0
     # Three steps with an absorb and one with the coarse update.
     assert launches["pyr_tail"] == 4
+    assert launches["gauss_fit"] == row["streaming"]["estimates"] == 4
     assert len(row["streaming"]["absorb_step_ms"]) == 3
     assert row["streaming"]["split_ms"]["localize"]["n"] == 1
     assert len(row["f64_refine"]["step_ms"]) == 3
@@ -462,7 +486,7 @@ def test_surface_phase_fails_on_a_missing_launch(cpu_timers, monkeypatch):
 
 # -- the benchmark's modes ------------------------------------------------------
 
-# Two of phase_bench's modes at a CPU size: the corpus (no kernel) and the
+# Two of phase_bench's modes at a CPU size: the corpus (no K1) and the
 # live path, which calibrates (K1).
 SMALL_BENCH = (
     ("bpm_corpus", "main_bpm_corpus", {"n_traces": 1}),
@@ -476,7 +500,10 @@ def test_bench_phase_rehearses_on_the_cpu(planned_launches):
     lines = planned_launches
     paths = chip_smoke.phase_bench("cpu", SMALL_BENCH)
     assert set(paths) == {"bench_bpm_corpus", "bench_live"}
-    assert sum(paths["bench_bpm_corpus"].values()) == 0
+    # The corpus runs no stencil or band kernel, only the Gaussian fit.
+    corpus = paths["bench_bpm_corpus"]
+    assert sum(chip_smoke.pyramid_launches(corpus).values()) == 0
+    assert corpus["gauss_fit"] > 0
     # The live mode's one 64-frame 120x160 locate.
     planned = chip_smoke.planned_launches(120, 160, 6, 2)
     assert {k: paths["bench_live"][k] for k in planned} == planned

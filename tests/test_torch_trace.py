@@ -373,6 +373,22 @@ def test_fit_counts_equal_a_replay_of_the_loop(dtype):
                              "live_lane_steps": live[0] + live[1]}
 
 
+def test_a_cpu_fit_takes_the_plain_loop():
+    # The kernel is for CUDA tensors: on the CPU no launch, and one
+    # bpm.lm_step span an iteration inside the bpm.fit span.
+    t, y, mask = _windows()
+    before = gaussfit.LAUNCHES
+    bench.enable()
+    gaussfit.gaussian_fit_batch(t, y, mask)
+    bench.disable()
+    snap = bench.snapshot()
+    fit = [s for s in snap if s["name"] == "bpm.fit"]
+    steps = [s for s in snap if s["name"] == "bpm.lm_step"]
+    assert gaussfit.LAUNCHES == before
+    assert len(fit) == 1 and len(steps) == fit[0]["counts"]["steps"] > 1
+    assert all(s["parent"] == fit[0]["id"] for s in steps)
+
+
 def _replay_sweeps(val, fg, big, neighbor):
     """Sweeps of ccl's fixed-point loop, replayed."""
     n = 0
