@@ -218,14 +218,15 @@ def init_fleet_streaming_from_buffers(buffers: torch.Tensor, cfg):
 def absorb_streams(sstate, frames: torch.Tensor, cfg):
     """Absorb one (S, H, W) frame batch into the batched rings (one K1
     call)."""
-    return streaming.streaming_absorb_batch(sstate, frames, cfg)
+    with span("fleet.absorb", frames=int(frames.shape[0])):
+        return streaming.streaming_absorb_batch(sstate, frames, cfg)
 
 
 def update_streams(sstate, frames: torch.Tensor, fps: float, cfg,
                    coarse: bool = True):
     """Absorb one (S, H, W) frame batch AND localize every stream over its
     rolling window.  Returns (rings, per-stream ``StreamingLocate``)."""
-    new_state = streaming.streaming_absorb_batch(sstate, frames, cfg)
+    new_state = absorb_streams(sstate, frames, cfg)
     hw = tuple(frames.shape[-2:])
     loc = streaming.localize_batch(new_state, hw, new_state.levels[0].dtype,
                                    fps, cfg, coarse)
@@ -631,21 +632,30 @@ class MultiStreamMonitor:
         if self._stream_tick % self.cfg.streaming_interval:
             self._streaming = absorb_streams(self._streaming, dev, cal)
             return
-        self._streaming, loc = update_streams(
-            self._streaming, dev, self.fps, cal,
-            coarse=self.streaming_coarse)
-        self._maybe_relock(self._global(loc), dev)
+        with span("fleet.localize", streams=len(self._rois)) as sp:
+            self._streaming, loc = update_streams(
+                self._streaming, dev, self.fps, cal,
+                coarse=self.streaming_coarse)
+            loc = self._global(loc)
+            # One small read of the boxes each localize interval.
+            boxes = torch.stack(
+                [loc.found.to(torch.int64), loc.x.to(torch.int64),
+                 loc.y.to(torch.int64), loc.w.to(torch.int64),
+                 loc.h.to(torch.int64)]).cpu().numpy()
+            sp.set(found=int(boxes[0].sum()))
+        self._maybe_relock(boxes, dev)
 
-    def _maybe_relock(self, loc, dev) -> None:
-        """The host's drift decision and the batched masked re-lock (one
-        small read of the per-stream boxes each localize interval).  Each
-        stream keeps its calibrated window SIZE, recentred on the
-        localized bbox and clipped to the frame, like the single-stream
-        monitor's re-lock."""
-        found, bx, by, bw, bh = torch.stack(
-            [loc.found.to(torch.int64), loc.x.to(torch.int64),
-             loc.y.to(torch.int64), loc.w.to(torch.int64),
-             loc.h.to(torch.int64)]).cpu().numpy()
+    def _maybe_relock(self, boxes: np.ndarray, dev) -> None:
+        """The host's drift decision on the localize's ``boxes`` (found, x,
+        y, w, h rows) and the batched masked re-lock.  Each stream keeps
+        its calibrated window SIZE, recentred on the localized bbox and
+        clipped to the frame, like the single-stream monitor's re-lock.
+
+        A re-lock that moves every tracked point of a stream out of its
+        window leaves that stream uninitialized; the next step then runs
+        the corner detection (the JAX fleet keeps the hint and never
+        detects that stream's corners again)."""
+        found, bx, by, bw, bh = boxes
         found = found.astype(bool)
         if not found.any():
             return
@@ -666,10 +676,16 @@ class MultiStreamMonitor:
         if not apply.any():
             return
         new_rois = np.stack([x2, y2, w, h], axis=1).astype(np.int32)
-        # The property setter also drops the carried LK cache (re-locked
-        # streams re-cropped prev from the current frame).
-        self.states = relock_streams(self._states, dev, self._own(new_rois),
-                                     self._own(apply), self.spec)
+        with span("fleet.relock", relocked=int(apply.sum())):
+            # The property setter also drops the carried LK cache
+            # (re-locked streams re-cropped prev from the current frame).
+            self.states = relock_streams(self._states, dev,
+                                         self._own(new_rois),
+                                         self._own(apply), self.spec)
+            # One more small read, after an applied flow re-lock only.
+            if self.spec.method == "flow" and \
+                    not bool(self._states.initialized.all()):
+                self._needs_init = True
         self._rois[apply] = new_rois[apply]
         self.relocks += int(apply.sum())
 

@@ -21,6 +21,7 @@ from respmon_tpu.io.synthetic import breathing_clip
 from respmon_tpu.parallel import streams as jstreams
 from respmon_tpu_torch import interop
 from respmon_tpu_torch.parallel import streams as tstreams
+from respmon_tpu_torch.pipeline import motion as tmotion
 from respmon_tpu_torch.pipeline import streaming as tstreaming
 
 torch.set_num_threads(1)
@@ -197,3 +198,66 @@ def test_recalibrated_streams_warm_start_their_rings():
     cfg = dataclasses.replace(_cfg(t), streaming_roi=False)
     plain = _port_fleet(cfg, clips, t)
     assert plain._streaming is None
+
+
+def test_a_relock_that_drops_every_point_detects_corners_again(monkeypatch):
+    # A re-lock that moves a stream's window by more than its width takes
+    # every tracked point of that stream out of it: the stream is then
+    # uninitialized, and the next step detects its corners (the JAX fleet,
+    # respmon_tpu/parallel/streams.py:751-789, keeps the hint and loses
+    # the stream for good).  A re-lock that keeps points keeps the hint.
+    n, t, hw = 24, 16, (120, 200)
+    clips = np.stack([
+        breathing_clip(num_frames=n, height=hw[0], width=hw[1], fps=FPS,
+                       bpm=37.5, patch_center=(60, 30), patch_size=(24, 30),
+                       amplitude=0.3, noise=0.002, motion_px=1.5,
+                       texture_motion=True, seed=i) for i in range(3)])
+    cal = CalibrationConfig(buffer_length=t, pyramid_levels=5,
+                            skip_levels_at_top=1)
+    cfg = dataclasses.replace(_cfg(t, "flow"), calibration=cal,
+                              streaming_interval=10_000)
+    mon = tstreams.MultiStreamMonitor(interop.config_from_reference(cfg),
+                                      None, hw, FPS, device="cpu")
+    assert mon.calibrate(clips[:, :t]).found.all()
+    hints = []
+    real = tmotion.measure_step_cached
+
+    def spy(state, cache, frame, spec, initialized_hint=False,
+            cache_valid=True):
+        hints.append(initialized_hint)
+        return real(state, cache, frame, spec, initialized_hint,
+                    cache_valid)
+    monkeypatch.setattr(tmotion, "measure_step_cached", spy)
+    for f in range(t, t + 3):
+        mon.step(clips[:, f])
+    assert hints == [False, True, True]
+    assert bool(mon.states.initialized.all())
+    # The leftmost stream seen at the frame's right edge, another stream
+    # two pixels right, the third not found.
+    rois = mon._rois.copy()
+    far, near = np.argsort(rois[:, 0])[:2]
+    x = rois[:, 0].astype(np.int64)
+    x[far] = hw[1] - rois[far, 2]
+    x[near] += 2
+    found = np.ones(3, np.int64)
+    found[3 - far - near] = 0
+    boxes = np.stack([found, x, rois[:, 1], rois[:, 2], rois[:, 3]])
+    last = hw[1] - mon.spec.crop_w
+    assert min(x[far], last) - min(rois[far, 0], last) >= mon.spec.crop_w
+    mon._maybe_relock(boxes.astype(np.int64), mon._ingest(clips[:, t + 2]))
+    assert mon.relocks == 2
+    init = mon.states.initialized
+    assert not bool(init[far]) and int(init.sum()) == 2
+    assert not bool(mon.states.pts_valid[far].any())
+    res = mon.step(clips[:, t + 3])
+    assert hints[-1] is False
+    assert bool(mon.states.initialized.all())
+    assert bool(mon.states.pts_valid[far].any()) and not bool(res.error[far])
+    # A re-lock that leaves points in every window keeps the hint.
+    rois = mon._rois.copy()
+    boxes = np.stack([np.ones(3), rois[:, 0] + 2, rois[:, 1], rois[:, 2],
+                      rois[:, 3]]).astype(np.int64)
+    mon._maybe_relock(boxes, mon._ingest(clips[:, t + 3]))
+    assert mon.relocks >= 3 and bool(mon.states.initialized.all())
+    mon.step(clips[:, t + 4])
+    assert hints[-1] is True

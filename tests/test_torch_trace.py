@@ -5,12 +5,13 @@ loops they count, outputs unchanged by tracing, and the benchmark's readers
 of the spans (``benchmark/metrics``) on hand-built inputs."""
 
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import cells
+from benchmark.harness import cells, timing
 from respmon_tpu_torch.config import CalibrationConfig, MonitorConfig
 from respmon_tpu_torch.io.capture import ArrayCapture
 from respmon_tpu_torch.io.synthetic import breathing_clip
@@ -223,6 +224,42 @@ def fleet_runs():
     return off, on, snap
 
 
+def _streaming_fleet_run(traced: bool):
+    """Two drifting subjects through the fleet's streaming-ROI mode: a
+    localize every second step, re-locks past 1 px of drift."""
+    cfg = MonitorConfig(motion_extraction_method="flow", streaming_roi=True,
+                        streaming_interval=2, streaming_drift_px=1.0,
+                        calibration=CalibrationConfig(
+                            buffer_length=16, pyramid_levels=4,
+                            skip_levels_at_top=1))
+    clips = np.stack([breathing_clip(
+        num_frames=24, height=60, width=80, fps=FPS, bpm=37.5,
+        patch_center=(20, 24), patch_size=(14, 18), amplitude=0.3,
+        drift_px=d, noise=0.002, motion_px=1.5, texture_motion=True, seed=0)
+        for d in ((14.0, 24.0), (12.0, 20.0))])
+    mon = streams.MultiStreamMonitor(cfg, None, (60, 80), FPS,
+                                     device="cpu")
+    mon.calibrate(clips[:, :16])
+    if traced:
+        bench.enable()
+    results = []
+    for f in range(16, 24):
+        r = mon.step(clips[:, f])
+        results.append([r.samples, r.error, mon.states.roi])
+    bench.disable()
+    return (results, mon.relocks), bench.snapshot()
+
+
+@pytest.fixture(scope="module")
+def streaming_fleet_runs():
+    bench.disable()
+    bench.clear()
+    off, _ = _streaming_fleet_run(False)
+    on, snap = _streaming_fleet_run(True)
+    bench.clear()
+    return off, on, snap
+
+
 def _tree(snap, root):
     """{span name: its parent's name} of the spans under the root span
     ``root`` (an id), and those spans."""
@@ -307,6 +344,40 @@ def test_a_fleet_step_forms_its_tree(fleet_runs):
     assert c["lanes"] <= c["live_lane_steps"] <= c["lanes"] * c["steps"]
 
 
+def test_a_streaming_fleet_step_forms_its_tree(streaming_fleet_runs):
+    _, (_, relocks), snap = streaming_fleet_runs
+    roots = _roots(snap, "fleet.step")
+    assert len(roots) == 8
+    localized = relocked = 0
+    for root in roots:
+        tree, spans = _tree(snap, root["id"])
+        absorb = next(x for x in spans if x["name"] == "fleet.absorb")
+        assert absorb["counts"] == {"frames": 2}
+        if "fleet.localize" not in tree:
+            assert tree["fleet.absorb"] == "fleet.step"
+            assert "fleet.relock" not in tree
+            continue
+        localized += 1
+        # The localize holds its step's absorb and one connected-component
+        # search a stream, each counting its sweeps.
+        loc = next(x for x in spans if x["name"] == "fleet.localize")
+        assert tree["fleet.localize"] == "fleet.step"
+        assert tree["fleet.absorb"] == "fleet.localize"
+        assert loc["counts"]["streams"] == 2
+        assert 0 <= loc["counts"]["found"] <= 2
+        ccls = [x for x in spans if x["name"] == "locate.ccl"]
+        assert len(ccls) == 2 and all(
+            x["parent"] == loc["id"] and x["counts"]["sweeps"] >= 1
+            for x in ccls)
+        for x in spans:
+            if x["name"] == "fleet.relock":
+                assert tree["fleet.relock"] == "fleet.step"
+                assert x["start_ns"] >= loc["end_ns"]
+                relocked += x["counts"]["relocked"]
+    assert localized == 4
+    assert relocked == relocks >= 1
+
+
 def test_monitor_outputs_are_bit_identical_with_tracing_on(monitor_runs):
     off, on, _ = monitor_runs
     assert off["states"] == on["states"] and off["box"] == on["box"]
@@ -321,6 +392,15 @@ def test_monitor_outputs_are_bit_identical_with_tracing_on(monitor_runs):
 def test_fleet_outputs_are_bit_identical_with_tracing_on(fleet_runs):
     off, on, _ = fleet_runs
     assert bool(off[-1][2].any())   # the steps estimate BPMs
+    for a_step, b_step in zip(off, on):
+        for a, b in zip(a_step, b_step):
+            assert torch.equal(a, b)
+
+
+def test_streaming_fleet_outputs_are_bit_identical_with_tracing_on(
+        streaming_fleet_runs):
+    (off, relocks_off), (on, relocks_on), _ = streaming_fleet_runs
+    assert relocks_off == relocks_on
     for a_step, b_step in zip(off, on):
         for a, b in zip(a_step, b_step):
             assert torch.equal(a, b)
@@ -516,3 +596,77 @@ def test_every_metric_of_the_spans_is_in_the_benchmark():
         assert entries[name]["source"] == "program_span"
         (cell,) = entries[name]["workloads"]
         assert entries[name] in cells.cell(cell)["per_layer"]
+
+
+def _at(i, name, parent, step, start_ms, end_ms, **counts):
+    return {"name": name, "id": i, "parent": parent, "step": step,
+            "start_ns": int(start_ms * 1e6), "end_ns": int(end_ms * 1e6),
+            "counts": counts}
+
+
+STREAMING_SNAPSHOT = [
+    # A step that only absorbs.
+    _at(2, "fleet.absorb", 1, 1, 0.0, 1.0, frames=64),
+    _at(1, "fleet.step", None, 1, 0.0, 100.0),
+    # A localize of 900 ms holding a 10 ms absorb and CCLs of 3 + 5
+    # sweeps, then its re-lock.
+    _at(5, "fleet.absorb", 4, 3, 100.0, 110.0, frames=64),
+    _at(6, "locate.ccl", 4, 3, 200.0, 300.0, sweeps=3),
+    _at(7, "locate.ccl", 4, 3, 300.0, 400.0, sweeps=5),
+    _at(4, "fleet.localize", 3, 3, 100.0, 1000.0, streams=64, found=64),
+    _at(8, "fleet.relock", 3, 3, 1000.0, 1002.0, relocked=5),
+    _at(3, "fleet.step", None, 3, 0.0, 1100.0),
+    # A localize of 600 ms holding a 20 ms absorb and CCLs of 4 + 6 sweeps.
+    _at(11, "fleet.absorb", 10, 9, 2000.0, 2020.0, frames=64),
+    _at(12, "locate.ccl", 10, 9, 2100.0, 2200.0, sweeps=4),
+    _at(13, "locate.ccl", 10, 9, 2200.0, 2300.0, sweeps=6),
+    _at(10, "fleet.localize", 9, 9, 2000.0, 2600.0, streams=64, found=63),
+    _at(9, "fleet.step", None, 9, 1900.0, 2700.0),
+    # A calibration's CCL, under no localize.
+    _at(14, "locate.ccl", None, 14, 3000.0, 3100.0, sweeps=11),
+]
+
+K1_RUN = SimpleNamespace(frame_hw=(1080, 1920), cfg=SimpleNamespace(
+    calibration=SimpleNamespace(pyramid_levels=9, skip_levels_at_top=4)))
+K1_KERNELS = {"pyr_down_levels_d1_f32": 0.9e-3, "pyr_tail_f32": 0.6e-3,
+              "gauss_fit_kernel<float>": 2.0e-3}
+STREAMING_EXPECTED = {
+    "localize_ms.fleet": ((900.0 - 10.0) + (600.0 - 20.0)) / 2,
+    "ccl_reads.localize": ((3 + 5) + (4 + 6)) / 2,
+    "k1_roofline_pct.absorb": 100.0 * 3 * timing.k1_bound(
+        64, 1080, 1920, 9, 4)["bound_ms"] * 1e-3 / 1.5e-3}
+
+
+def _k1_trace(kernels_s):
+    return SimpleNamespace(profile={"kernels_s": kernels_s}, run=K1_RUN,
+                           bound=timing.k1_bound,
+                           k1_seconds=timing.k1_seconds)
+
+
+@pytest.mark.parametrize("name", sorted(STREAMING_EXPECTED))
+def test_streaming_metric_reads_the_hand_built_spans(name, monkeypatch):
+    monkeypatch.setattr(bench, "snapshot", lambda: STREAMING_SNAPSHOT)
+    read = cells.metric_reader(name)
+    assert read(_k1_trace(K1_KERNELS)) == pytest.approx(
+        STREAMING_EXPECTED[name], rel=1e-12)
+    # The parent program (no such spans, or no ring) reads nothing and
+    # raises nothing; nor does a stretch that ran no K1 kernel.
+    monkeypatch.setattr(bench, "snapshot", lambda: HAND_SNAPSHOT)
+    assert read(_k1_trace(K1_KERNELS)) is None
+    monkeypatch.delattr(bench, "snapshot")
+    assert read(_k1_trace(K1_KERNELS)) is None
+    if name.startswith("k1_"):
+        monkeypatch.setattr(bench, "snapshot", lambda: STREAMING_SNAPSHOT,
+                            raising=False)
+        assert read(_k1_trace({"gauss_fit_kernel<float>": 1.0})) is None
+
+
+def test_every_streaming_metric_is_in_the_drift_cell():
+    spec = cells.benchmark_spec()
+    entries = {m["name"]: m for m in spec["per_layer"]}
+    reported = cells.cell("fleet64_1080p_roi.drift")["per_layer"]
+    for name in STREAMING_EXPECTED:
+        assert entries[name]["workloads"] == ["fleet64_1080p_roi.drift"]
+        assert entries[name]["moves"] == "stream_frames_per_s"
+        assert entries[name] in reported
+    assert {m["name"] for m in reported} == set(STREAMING_EXPECTED)
