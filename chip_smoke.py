@@ -11,7 +11,9 @@ launches their plan makes for each parity geometry; the band kernels also
 on dense, all-zero-tile, unaligned and minuend operands; the Gaussian LM
 fit's kernel at the single monitor's and the 64-stream fleet's shapes,
 with its float64 refit, bit for bit against the plain loop,
-``phase_gaussfit``; the
+``phase_gaussfit``; the connected-component kernel at the fleet's localize
+and the calibrations' shapes, bit for bit against the plain version,
+``phase_ccl``; the
 monitor and fleet phases count its launches, two a single estimate and one
 a fleet estimate), and drives the whole-clip path
 ``process_clip`` at 640x480 in average mode and in flow mode (Shi-Tomasi
@@ -185,25 +187,28 @@ def bound(n_bytes: float, flops: float) -> dict:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from respmon_tpu_torch.ops import gaussfit, pyramid_cuda, pyramid_mm
+    from respmon_tpu_torch.ops import ccl, gaussfit, pyramid_cuda, pyramid_mm
 
     pyramid_cuda.reset_launches()
     pyramid_mm.reset_launches()
     gaussfit.reset_launches()
+    ccl.reset_launches()
 
 
 def read_launches() -> dict:
     """Every kernel's launch count since ``reset_launches``: the stencil
-    and band kernels by name, the Gaussian fit's as ``gauss_fit``."""
-    from respmon_tpu_torch.ops import gaussfit, pyramid_cuda, pyramid_mm
+    and band kernels by name, the Gaussian fit's as ``gauss_fit``, the
+    connected-component search's library calls as ``ccl``."""
+    from respmon_tpu_torch.ops import ccl, gaussfit, pyramid_cuda, pyramid_mm
 
     return {**pyramid_cuda.LAUNCHES, **pyramid_mm.LAUNCHES,
-            "gauss_fit": gaussfit.LAUNCHES}
+            "gauss_fit": gaussfit.LAUNCHES, "ccl": ccl.LAUNCHES}
 
 
 def pyramid_launches(launches: dict) -> dict:
     """The stencil and band kernels' counts of a ``read_launches`` dict."""
-    return {k: n for k, n in launches.items() if k != "gauss_fit"}
+    return {k: n for k, n in launches.items()
+            if k not in ("gauss_fit", "ccl")}
 
 
 class count_estimates:
@@ -236,6 +241,15 @@ def check_fit_launches(launches, estimates: int, per_estimate: int,
     check(estimates > 0 and launches["gauss_fit"] == per_estimate * estimates,
           f"{what}: {per_estimate} gauss_fit launches an estimate, "
           f"{launches['gauss_fit']} over {estimates} estimates")
+
+
+def check_ccl_launches(launches, searches: int, what: str) -> None:
+    """A run that made ``searches`` connected-component searches (one a
+    ``locate``, one a batched localize of S masks) called ``csrc/ccl.cu``
+    once each."""
+    check(searches > 0 and launches["ccl"] == searches,
+          f"{what}: one ccl call a search, {launches['ccl']} over "
+          f"{searches} searches")
 
 
 def check_k1_path(launches, what: str) -> None:
@@ -284,7 +298,8 @@ def phase_device():
 
 
 def phase_build():
-    from respmon_tpu_torch.ops import _build, gaussfit, pyramid_cuda, pyramid_mm
+    from respmon_tpu_torch.ops import (_build, ccl, gaussfit, pyramid_cuda,
+                                       pyramid_mm)
 
     root = _build.BUILD_DIR.parent.parent
 
@@ -306,12 +321,13 @@ def phase_build():
                           or "Compiling" in ln]}
 
     # One nvcc per source, all started together.
-    names = ("pyramid", "band_mm", "gaussfit")
+    names = ("pyramid", "band_mm", "gaussfit", "ccl")
     with ThreadPoolExecutor(len(names)) as pool:
         libraries = dict(zip(names, pool.map(build, names)))
     pyramid_cuda._lib()
     pyramid_mm._lib()
     gaussfit._lib()
+    ccl._lib()
     emit({"phase": "build", "libraries": libraries})
 
 
@@ -468,6 +484,83 @@ def phase_gaussfit(dev):
         check(r["lm_counts"] == r["plain_lm_counts"],
               f"{case}: the kernel's LM counts {r['lm_counts']} are the "
               f"plain loop's {r['plain_lm_counts']}")
+    return rows
+
+
+CCL_CU = "respmon_tpu_torch/csrc/ccl.cu"
+# The connected-component search's shapes on the main path: the 64 x 1080p
+# fleet's coarse localize (level 4), a 640x480 and a 1080p calibration.
+CCL_SHAPES = ((64, 68, 120, "fleet_1080p_streaming"),
+              (1, 480, 640, "monitor_recovery_640x480"),
+              (1, 1080, 1920, "locate_1080p"))
+
+
+def ccl_masks(dev, shape, kind, gen):
+    """An (S, H, W) bool batch: ``sparse`` noise (10%), ``dense`` noise
+    (55%, past 8-connected percolation: large winding components), or
+    ``blobs`` (a 9x9 box mean of noise over 0.5, as a thresholded heatmap
+    looks: a few large regions with holes)."""
+    import torch
+    import torch.nn.functional as F
+
+    noise = torch.rand(shape, generator=gen, device=dev)
+    if kind == "sparse":
+        return noise < 0.1
+    if kind == "dense":
+        return noise < 0.55
+    return F.avg_pool2d(noise[:, None], 9, 1, 4)[:, 0] > 0.5
+
+
+def phase_ccl(dev):
+    """The connected-component kernel (``csrc/ccl.cu``) at the main path's
+    shapes (``CCL_SHAPES``) on sparse, dense and blob masks: one call of
+    the library a batch, every field (x, y, w, h, found, area) the plain
+    version's on the card bit for bit, timed beside the plain version and
+    the bytes bound (the masks read once, the results written once).
+    Returns the kernel rows."""
+    import torch
+
+    from respmon_tpu_torch.ops import ccl
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rows = []
+    for s, h, w, path in CCL_SHAPES:
+        for kind in ("sparse", "dense", "blobs"):
+            fg = ccl_masks(dev, (s, h, w), kind, gen)
+            before = ccl.LAUNCHES
+            got = ccl.largest_component_bbox_batch(fg)
+            launches = ccl.LAUNCHES - before
+            parts, plain_s = wall_s(
+                lambda: [ccl._largest_component_bbox(img) for img in fg])
+            want = [torch.stack(f) for f in zip(*(b for b, _ in parts))]
+            equal = torch.ones(s, dtype=torch.bool, device=dev)
+            for g, v in zip(got, want):
+                equal &= g == v
+            n_bytes = s * h * w + s * (4 * 4 + 1 + 4)
+            rows.append({
+                "name": "ccl_largest_bbox", "route": "cuda",
+                "source": CCL_CU,
+                "replaces": "none: the JAX package's CCL is XLA "
+                            "composition (respmon_tpu/ops/ccl.py)",
+                "case": kind, "shape": [s, h, w], "path": path,
+                "launches_a_batch": launches,
+                "masks_bit_equal": int(equal.sum()), "masks": s,
+                "found": int(got.found.sum()),
+                "plain_sweeps": sum(n for _, n in parts),
+                "ms": cuda_ms(lambda: ccl.largest_component_bbox_batch(fg),
+                              calls=KERNEL_CALLS),
+                "ms_one_call": cuda_ms(
+                    lambda: ccl.largest_component_bbox_batch(fg)),
+                "plain_ms": plain_s * 1e3,
+                "bound_ms": n_bytes / PEAK_BYTES_S * 1e3,
+                "bound_by": "bytes", "library_ms": None})
+    emit({"phase": "ccl", "rows": rows})
+    for r in rows:
+        what = f"ccl {r['case']} {r['shape']}"
+        check(r["launches_a_batch"] == 1, f"{what}: one library call a batch")
+        check(r["masks_bit_equal"] == r["masks"],
+              f"{what}: {r['masks_bit_equal']} of {r['masks']} masks the "
+              f"plain version's bit for bit")
     return rows
 
 
@@ -1498,6 +1591,7 @@ def phase_monitor_recovery(frames, cfg=None, device=None, blackout_at=30,
           f"measuring again with a new BPM after the error: {seen}")
     check(calibrations >= 2, f"recalibrated ({calibrations} calibrations)")
     check_k1_calibrations(launches, calibrations, "the recovery run")
+    check_ccl_launches(launches, calibrations, "the recovery run")
     recover_s = sum(s["step_s"] for s in steps[start:seen["bpm_again"] + 1])
     report = monitor_report(mon, steps)
     emit({"phase": "monitor_recovery_flow", "frames": list(frames.shape),
@@ -1959,6 +2053,7 @@ def phase_1080p(dev):
           and planned["pyr_down_levels_d2"] == 1 and planned["pyr_tail"] == 1,
           f"the 1080p locate launched A (d = 2), A (d = 1) and B once each, "
           f"as planned: {launches}")
+    check_ccl_launches(launches, 1, "the 1080p locate")
     check(bool(res.found), "1080p locate found an ROI")
     with pyramid_route():
         plain = evm.locate(frames, FPS, cfg)
@@ -2408,6 +2503,8 @@ def phase_fleet_1080p(roi, buffer, device=None,
     check_k1_fleet(launches, mons, "the 64 x 1080p streaming fleet")
     check_fit_launches(launches, estimates.n, _fleet_fits(mons.cfg),
                        "the 64 x 1080p streaming fleet")
+    check_ccl_launches(launches, len(splits.seconds["localize"])
+                       + mons.locates, "the 64 x 1080p streaming fleet")
     ring0 = streams.init_fleet_streaming((h_f, w_f), cfg.calibration, s,
                                          device=device)
     got = streaming.streaming_absorb_batch(ring0, batches[0],
@@ -2742,8 +2839,10 @@ def phase_sharded(frames, fleet_host, fleet_rows, cfg=None, device=None,
         reset_launches()
         spatial.locate_wsharded(buf, mesh_w, FPS, cal)
         launches["wsharded"] = read_launches()
-        check(not any(launches["wsharded"].values()),
-              "the W-sharded locate runs its own stencils, no kernel")
+        check(not any(pyramid_launches(launches["wsharded"]).values())
+              and launches["wsharded"]["ccl"] == 1,
+              f"the W-sharded locate runs its own stencils, no stencil "
+              f"kernel, and one ccl call: {launches['wsharded']}")
         check(all(torch.equal(a, b) for a, b in zip(got_w, want)),
               "the W-sharded locate equals evm.locate bit for bit")
 
@@ -3361,10 +3460,12 @@ def phase_surface(frames, roi, ring, device=None):
                    and row["entry_box"] == row["entry_cpu_box"],
                    "entry() on the card finds the CPU's box"))
     checks.append(({k: launches[k] for k in planned} == planned
-                   and not any(v for k, v in launches.items()
-                               if k not in planned),
+                   and not any(v for k, v in pyramid_launches(launches)
+                               .items() if k not in planned),
                    f"entry() launched K1 as one (64,120,160) locate plans "
                    f"({planned}): {launches}"))
+    checks.append((launches["ccl"] == 1,
+                   f"entry() made one ccl call: {launches}"))
     emit({**row, "ms": ms})
     for ok, what in checks:
         check(ok, what)
@@ -3397,6 +3498,7 @@ def main() -> int:
     timed(phase_build)
     timed(phase_widen, dev)
     gaussfit_rows = timed(phase_gaussfit, dev)
+    ccl_rows = timed(phase_ccl, dev)
     kernels, lap_path = timed(phase_kernels, dev)
     kernels += timed(phase_kernels_k3, dev)
     stream_rows, stream_1080p = timed(phase_streaming_kernels, dev)
@@ -3461,7 +3563,9 @@ def main() -> int:
     # L9/S1 parity run for lap_level_f32 (no default configuration takes
     # its route), the K3 calibration for the band kernels, the flow
     # monitor (2 an estimate) and the 64 x 1080p streaming fleet (1 an
-    # estimate) for the Gaussian fit's rows (their ``path``).
+    # estimate) for the Gaussian fit's rows, and the streaming fleet (1 a
+    # localize), the recovery run (1 a calibration) and the 1080p locate
+    # for the CCL's rows (their ``path``).
     paths = {"slice_640x480": avg_launches, "flow_640x480": flow_launches,
              "k3_locate_640x480": k3_launches,
              "k1_parity_4x480x640_l9s1": lap_path,
@@ -3499,14 +3603,15 @@ def main() -> int:
         k["path"] = k.get("path", own_path[key])
         k["launches"] = paths[k["path"]][key]
         check(k["launches"] > 0, f"{k['name']} launched on its path")
-    for k in gaussfit_rows:
-        k["launches_by_path"] = {name: counts["gauss_fit"]
-                                 for name, counts in paths.items()}
-        k["launches"] = paths[k["path"]]["gauss_fit"]
-        check(k["launches"] > 0, f"{k['name']} launched on {k['path']}")
+    for rows, key in ((gaussfit_rows, "gauss_fit"), (ccl_rows, "ccl")):
+        for k in rows:
+            k["launches_by_path"] = {name: counts[key]
+                                     for name, counts in paths.items()}
+            k["launches"] = paths[k["path"]][key]
+            check(k["launches"] > 0, f"{k['name']} launched on {k['path']}")
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - start,
           "budget_s": TIME_BUDGET_S})
-    emit({"kernels": kernels + gaussfit_rows})
+    emit({"kernels": kernels + gaussfit_rows + ccl_rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,24 +2,45 @@
 
 Port of ``respmon_tpu/ops/ccl.py`` (reference base.py:566-575: threshold ->
 ``cv2.findContours(RETR_EXTERNAL)`` -> max ``contourArea`` ->
-``boundingRect``).  Labels propagate by sweeps of an 8-neighbourhood min
-plus segmented min-scans along rows and columns (Hillis-Steele doubling
-with contiguous shifts) until a sweep changes nothing — one ``.any()`` host
-check per sweep (``largest_component_bbox``'s ``locate.ccl`` span counts
-them).  Areas are cv2's polygon areas, decomposed over 2x2 pixel-centre
-quads of the hole-filled mask (4 filled -> 1, 3 -> 1/2); the ``argmax``
-over labels keeps the raster-first component on ties, as
-``torch.argmax`` documents it returns the first maximal index.
+``boundingRect``).  ``largest_component_bbox_batch`` takes a batch of
+masks: a CUDA tensor goes through ``csrc/ccl.cu``, a union-find in six
+launches a batch with no host read; a CPU tensor takes the plain version,
+``_largest_component_bbox``, one mask at a time.  The plain version's labels
+propagate by sweeps of an 8-neighbourhood min plus segmented min-scans
+along rows and columns (Hillis-Steele doubling with contiguous shifts)
+until a sweep changes nothing — one ``.any()`` host check per sweep (the
+``locate.ccl`` span counts them).  Areas are cv2's polygon areas,
+decomposed over 2x2 pixel-centre quads of the hole-filled mask (4 filled ->
+1, 3 -> 1/2); the ``argmax`` over labels keeps the raster-first component
+on ties, as ``torch.argmax`` documents it returns the first maximal index.
+The kernel computes the same function bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from respmon_tpu_torch.utils.bench import span
+
+# Calls of csrc/ccl.cu, one a batch of masks on a CUDA tensor (six kernels
+# each).
+LAUNCHES = 0
+
+# The kernel sums areas in halves, exact in float32 (as the plain version's
+# sums are) below 2**23: it takes masks of fewer pixels.
+MAX_PIXELS = 2 ** 23
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
 
 
 class BBoxResult(NamedTuple):
@@ -161,16 +182,79 @@ def fill_holes(fg: torch.Tensor) -> torch.Tensor:
 
 def largest_component_bbox(fg: torch.Tensor) -> BBoxResult:
     """Bounding box (x, y, w, h), cv2 convention, of the component with the
-    largest cv2.contourArea-equivalent outer-contour area, in a
-    ``locate.ccl`` span that counts the fixed-point ``sweeps``."""
+    largest cv2.contourArea-equivalent outer-contour area of an (H, W)
+    mask: ``largest_component_bbox_batch`` of one mask, 0-d fields."""
+    return BBoxResult(*(f[0] for f in largest_component_bbox_batch(fg[None])))
+
+
+def largest_component_bbox_batch(fg: torch.Tensor) -> BBoxResult:
+    """``largest_component_bbox`` of each mask of an (S, H, W) bool batch,
+    fields of shape (S,), in one ``locate.ccl`` span that counts the
+    ``images`` and the host reads, ``sweeps``: the plain version's
+    fixed-point sweeps on the CPU, 0 on the card.  A CUDA tensor runs
+    ``csrc/ccl.cu`` on the current stream, without a synchronise or a host
+    read; a CPU tensor the plain version, one mask at a time.  An empty
+    mask gives found False, area -inf and the box (W, H, -W, -H)."""
+    if fg.dtype != torch.bool or fg.ndim != 3 or 0 in fg.shape:
+        raise ValueError(f"ccl: expected an (S, H, W) bool batch, none of "
+                         f"them 0, got {fg.dtype} {tuple(fg.shape)}")
     with span("locate.ccl") as rec:
-        box, sweeps = _largest_component_bbox(fg)
-        rec.set(sweeps=sweeps)
+        if fg.device.type == "cpu":
+            parts = [_largest_component_bbox(img) for img in fg]
+            rec.set(sweeps=sum(n for _, n in parts), images=len(parts))
+            return BBoxResult(*(torch.stack(f)
+                                for f in zip(*(box for box, _ in parts))))
+        box = _bbox_cuda(fg)
+        rec.set(sweeps=0, images=fg.shape[0])
         return box
 
 
+def _lib():
+    from respmon_tpu_torch.ops import _build
+
+    lib = _build.load("ccl")
+    if not getattr(lib, "_respmon_bound", False):
+        lib.ccl_largest_bbox.argtypes = [_P, _I, _I, _I] + [_P] * 5
+        lib.ccl_largest_bbox.restype = _I
+        lib._respmon_bound = True
+    return lib
+
+
+def _bbox_cuda(fg: torch.Tensor) -> BBoxResult:
+    """``largest_component_bbox_batch``'s body on the card: one call of
+    ``csrc/ccl.cu`` (six launches on the current stream)."""
+    global LAUNCHES
+    s, h, w = fg.shape
+    if fg.device.type != "cuda":
+        raise ValueError(f"ccl: expected a CPU or CUDA tensor, got "
+                         f"{fg.device}")
+    if not fg.is_contiguous():
+        raise ValueError("ccl: expected a contiguous batch")
+    if h * w >= MAX_PIXELS or s > 65535 or s * h * w >= 2 ** 31:
+        raise ValueError(f"ccl: the kernel takes masks of fewer than "
+                         f"{MAX_PIXELS} pixels, at most 65535 of them and "
+                         f"fewer than 2**31 pixels in all, got "
+                         f"{tuple(fg.shape)}")
+    dev = fg.device
+    work = torch.empty(9 * s * h * w + s, dtype=torch.int32, device=dev)
+    xywh = torch.empty((4, s), dtype=torch.int32, device=dev)
+    found = torch.empty(s, dtype=torch.bool, device=dev)
+    area = torch.empty(s, dtype=torch.float32, device=dev)
+    err = _lib().ccl_largest_bbox(
+        fg.data_ptr(), s, h, w, work.data_ptr(), xywh.data_ptr(),
+        found.data_ptr(), area.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ccl_largest_bbox launch failed: cudaError_t "
+                           f"{err}")
+    LAUNCHES += 1
+    return BBoxResult(x=xywh[0], y=xywh[1], w=xywh[2], h=xywh[3],
+                      found=found, area=area)
+
+
 def _largest_component_bbox(fg: torch.Tensor):
-    """``largest_component_bbox`` and its sweeps."""
+    """The plain version of one (H, W) mask's box (a ``BBoxResult`` of 0-d
+    tensors), and its sweeps."""
     h, w = fg.shape
     big = h * w
     dev = fg.device

@@ -22,11 +22,10 @@ as one function of this rank's rows (as ``shard_streams`` places them):
 its per-stream outputs are global and its carried state stays this rank's
 rows.
 
-The port loops over streams in three places, each where one stream's work
+The port loops over streams in two places, each where one stream's work
 fills the card or runs rarely: ``locate_streams`` (one ``locate`` per
-stream: a 64 x 128 x 1080p buffer is 68 GB as float32),
-``measure_clip_streams`` (an offline path) and the connected-component
-search of the streaming localize (``streaming.localize_batch``).
+stream: a 64 x 128 x 1080p buffer is 68 GB as float32) and
+``measure_clip_streams`` (an offline path).
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ A state is a NamedTuple of tensors; every function returns a new one and
 changes nothing in place.  The ``*_batch`` functions and ``coarse=True``
 serve a fleet of streams (rings with a leading stream axis).  A fleet
 localize (``localize_batch``) bandpasses each kept level of all S streams
-in one operator product and collapses them as one stack; only the
-connected-component search runs stream by stream.
+in one operator product, collapses them as one stack and searches the S
+masks for their components in one call.
 """
 
 from __future__ import annotations
@@ -147,9 +147,10 @@ def localize_batch(state: StreamingState, frame_hw: Tuple[int, int],
     threshold, CCL bbox, each stream on its own.  Every field gets a
     leading stream axis.
 
-    Each level's bandpass is one operator product over all S rings, and
-    the collapse one pyrUp chain over the (T*S) stack; the CCL (whose
-    sweeps read the device) runs stream by stream.  The bandpass is the
+    Each level's bandpass is one operator product over all S rings, the
+    collapse one pyrUp chain over the (T*S) stack, and the CCL one call
+    over the (S, h, w) masks (on the card one kernel call, no host read).
+    The bandpass is the
     packed-rfft operator whatever ``cfg.temporal_filter`` says, as in the
     JAX package."""
     h0, w0 = frame_hw
@@ -176,9 +177,7 @@ def localize_batch(state: StreamingState, frame_hw: Tuple[int, int],
     amax = avg.amax(dim=(1, 2), keepdim=True)
     heat = float_to_uint8((avg - amin) / (amax - amin))
     fg = heat.to(torch.int32) > int(round(cfg.threshold * 255.0))
-    boxes = [ccl.largest_component_bbox(fg[i]) for i in range(s)]
-    bx, by, bw, bh, found = (torch.stack([getattr(b, f) for b in boxes])
-                             for f in ("x", "y", "w", "h", "found"))
+    bx, by, bw, bh, found, _ = ccl.largest_component_bbox_batch(fg)
     if coarse:
         k = 1 << stop
         bx, by = bx * k, by * k

@@ -39,12 +39,29 @@ def _count_fits(monkeypatch):
     monkeypatch.setattr(gaussfit, "_fit", counted)
 
 
+def _count_ccl(monkeypatch):
+    """Each batched connected-component search adds the one library call
+    it makes on the card to ``ccl.LAUNCHES`` (on CPU tensors it runs the
+    plain version)."""
+    from respmon_tpu_torch.ops import ccl
+
+    search = ccl.largest_component_bbox_batch
+
+    def counted(fg):
+        ccl.LAUNCHES += 1
+        return search(fg)
+
+    monkeypatch.setattr(ccl, "largest_component_bbox_batch", counted)
+
+
 @pytest.fixture
 def cpu_stand_ins(monkeypatch):
     """No device to synchronise; no stencil launches to count (the wrappers
     run their plain versions on CPU tensors): each calibration's check
-    records its arguments instead.  Each Gaussian fit counts its launch."""
+    records its arguments instead.  Each Gaussian fit and each
+    connected-component search counts its launch."""
     _count_fits(monkeypatch)
+    _count_ccl(monkeypatch)
     calls = []
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(chip_smoke, "check_k1_calibrations",
@@ -102,6 +119,7 @@ def test_recovery_phase_rehearses_on_the_cpu(cpu_stand_ins):
     row = lines[-1]
     assert row["phase"] == "monitor_recovery_flow"
     assert row["calibrations"] >= 2 and calls[-1][0] == row["calibrations"]
+    assert row["launches"]["ccl"] == row["calibrations"]
     start = row["blackout_frames"][0]
     assert start == 1 + 64 + 1 + 30
     assert start <= row["error_step"] < row["measure_again_step"] \
@@ -128,11 +146,12 @@ def test_phases_fail_when_a_check_fails(cpu_stand_ins):
 def planned_launches(monkeypatch):
     """CPU stand-ins that count: each K1 call adds the launches its plan
     makes on the card to ``pyramid_cuda.LAUNCHES``, and each Gaussian fit
-    its one launch, so the phases' own launch checks run; no device to
-    synchronise."""
+    and connected-component search its one launch, so the phases' own
+    launch checks run; no device to synchronise."""
     from respmon_tpu_torch.ops import pyramid_cuda
 
     _count_fits(monkeypatch)
+    _count_ccl(monkeypatch)
 
     k1 = pyramid_cuda.laplacian_band_levels
 
@@ -228,6 +247,14 @@ def test_k1_streaming_check_fails_on_a_missing_launch(planned_launches):
         chip_smoke.check_k1_streaming(launches, mon, "one launch short")
 
 
+def test_ccl_check_fails_on_a_missing_launch():
+    chip_smoke.check_ccl_launches({"ccl": 3}, 3, "a full count")
+    # One call short, and a run that made no search.
+    for launches, searches in (({"ccl": 2}, 3), ({"ccl": 0}, 0)):
+        with pytest.raises(RuntimeError, match="one ccl call a search"):
+            chip_smoke.check_ccl_launches(launches, searches, "short")
+
+
 def test_k1_bound_at_t1():
     # 640x480 L9/S4 at T = 1: the frame in (1.23 MB) and the kept levels
     # out, about 0.37 us at 3.35 TB/s; 1080p about 2.5 us.
@@ -242,7 +269,7 @@ def test_main_prints_each_phase_seconds_within_the_budget():
     import inspect
 
     src = inspect.getsource(chip_smoke.main)
-    for phase in ("phase_streaming_kernels", "phase_streaming",
+    for phase in ("phase_ccl", "phase_streaming_kernels", "phase_streaming",
                   "phase_monitor_streaming", "phase_monitor_warm_recovery",
                   "phase_iir_locate", "phase_monitor_recovery",
                   "phase_fleet", "phase_fleet_feeder",
@@ -325,6 +352,8 @@ def test_fleet_streaming_and_1080p_phases_rehearse_on_the_cpu(
     # Three steps with an absorb and one with the coarse update.
     assert launches["pyr_tail"] == 4
     assert launches["gauss_fit"] == row["streaming"]["estimates"] == 4
+    # The coarse update's one batched search over the 3 streams' masks.
+    assert launches["ccl"] == 1
     assert len(row["streaming"]["absorb_step_ms"]) == 3
     assert row["streaming"]["split_ms"]["localize"]["n"] == 1
     assert len(row["f64_refine"]["step_ms"]) == 3
@@ -350,9 +379,11 @@ def test_checkpoint_and_sharded_phases_rehearse_on_the_cpu(
     row = lines[-1]
     assert row["phase"] == "sharded_one_rank_nccl"
     # One K1 call on the T-sharded shard, none in the W-sharded locate,
-    # one per stream's locate in the fleet.
+    # one per stream's locate in the fleet; one CCL call a locate.
     assert launches["tsharded"]["pyr_tail"] == 1
-    assert not any(launches["wsharded"].values())
+    assert not any(chip_smoke.pyramid_launches(launches["wsharded"])
+                   .values())
+    assert launches["wsharded"]["ccl"] == 1
     assert launches["fleet"]["pyr_tail"] == 4
     # Five T-sharded locates (a first, three timed, one counted), one
     # reduce-scatter a kept level each.
@@ -460,7 +491,8 @@ def test_surface_phase_rehearses_on_the_cpu(planned_launches, cpu_timers):
     # The entry's one (64, 120, 160) L6/S2 locate: B alone at this size.
     planned = chip_smoke.planned_launches(120, 160, 6, 2)
     assert {k: launches[k] for k in planned} == planned
-    assert launches["pyr_tail"] == 1 and sum(launches.values()) == 1
+    assert launches["pyr_tail"] == 1 and launches["ccl"] == 1
+    assert sum(chip_smoke.pyramid_launches(launches).values()) == 1
     assert row["entry_found"] and row["entry_box"] == row["entry_cpu_box"]
     assert row["entry_heatmap_max_abs_diff"] == 0
     for method in ("flow", "average"):

@@ -359,16 +359,16 @@ def test_a_streaming_fleet_step_forms_its_tree(streaming_fleet_runs):
             continue
         localized += 1
         # The localize holds its step's absorb and one connected-component
-        # search a stream, each counting its sweeps.
+        # search of all its streams' masks, counting them and the sweeps.
         loc = next(x for x in spans if x["name"] == "fleet.localize")
         assert tree["fleet.localize"] == "fleet.step"
         assert tree["fleet.absorb"] == "fleet.localize"
         assert loc["counts"]["streams"] == 2
         assert 0 <= loc["counts"]["found"] <= 2
         ccls = [x for x in spans if x["name"] == "locate.ccl"]
-        assert len(ccls) == 2 and all(
-            x["parent"] == loc["id"] and x["counts"]["sweeps"] >= 1
-            for x in ccls)
+        assert len(ccls) == 1 and ccls[0]["parent"] == loc["id"]
+        assert ccls[0]["counts"]["images"] == 2
+        assert ccls[0]["counts"]["sweeps"] >= 2
         for x in spans:
             if x["name"] == "fleet.relock":
                 assert tree["fleet.relock"] == "fleet.step"
@@ -504,7 +504,8 @@ def test_ccl_sweeps_equal_a_replay_of_the_loops():
     _, n_lab = _replay_sweeps(torch.where(filled, idx, big), filled, big,
                               ccl._neighbor_min)
     assert rec["name"] == "locate.ccl"
-    assert rec["counts"] == {"sweeps": n_out + n_lab} and n_lab > 1
+    assert rec["counts"] == {"sweeps": n_out + n_lab, "images": 1}
+    assert n_lab > 1
     assert bool(box.found)
 
 
