@@ -187,22 +187,19 @@ def bound(n_bytes: float, flops: float) -> dict:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from respmon_tpu_torch.ops import ccl, gaussfit, pyramid_cuda, pyramid_mm
+    from respmon_tpu_torch.ops import _build
 
-    pyramid_cuda.reset_launches()
-    pyramid_mm.reset_launches()
-    gaussfit.reset_launches()
-    ccl.reset_launches()
+    _build.reset_launches()
 
 
 def read_launches() -> dict:
-    """Every kernel's launch count since ``reset_launches``: the stencil
-    and band kernels by name, the Gaussian fit's as ``gauss_fit``, the
-    connected-component search's library calls as ``ccl``."""
-    from respmon_tpu_torch.ops import ccl, gaussfit, pyramid_cuda, pyramid_mm
+    """A copy of every kernel's launch count since ``reset_launches``
+    (``ops/_build.LAUNCHES``): the stencil and band kernels by name, the
+    Gaussian fit's as ``gauss_fit``, the connected-component search's
+    library calls as ``ccl``."""
+    from respmon_tpu_torch.ops import _build
 
-    return {**pyramid_cuda.LAUNCHES, **pyramid_mm.LAUNCHES,
-            "gauss_fit": gaussfit.LAUNCHES, "ccl": ccl.LAUNCHES}
+    return dict(_build.LAUNCHES)
 
 
 def pyramid_launches(launches: dict) -> dict:
@@ -268,7 +265,7 @@ def planned_launches(h: int, w: int, levels: int, skip: int) -> dict:
     from respmon_tpu_torch.ops import pyramid_cuda
 
     p = pyramid_cuda.plan(h, w, levels, skip)
-    counts = dict.fromkeys(pyramid_cuda.LAUNCHES, 0)
+    counts = dict.fromkeys(pyramid_cuda.KERNELS.counted, 0)
     for _, d in p.downs:
         counts[f"pyr_down_levels_d{d}"] += 1
     counts["pyr_tail"] = int(p.tail)
@@ -324,10 +321,8 @@ def phase_build():
     names = ("pyramid", "band_mm", "gaussfit", "ccl")
     with ThreadPoolExecutor(len(names)) as pool:
         libraries = dict(zip(names, pool.map(build, names)))
-    pyramid_cuda._lib()
-    pyramid_mm._lib()
-    gaussfit._lib()
-    ccl._lib()
+    for ops in (pyramid_cuda, pyramid_mm, gaussfit, ccl):
+        ops.KERNELS.bind()
     emit({"phase": "build", "libraries": libraries})
 
 
@@ -406,7 +401,7 @@ def phase_gaussfit(dev):
     import torch
 
     from respmon_tpu_torch.config import MeasureConfig
-    from respmon_tpu_torch.ops import gaussfit
+    from respmon_tpu_torch.ops import _build, gaussfit
     from respmon_tpu_torch.utils import bench
 
     cut = MeasureConfig().gaussian_cutoff
@@ -437,9 +432,9 @@ def phase_gaussfit(dev):
             ("single_f64_every_lane", every_lane64, 500,
              "monitor_640x480_flow")):
         t, y, m = args
-        before = gaussfit.LAUNCHES
+        before = _build.LAUNCHES["gauss_fit"]
         got = gaussfit.gaussian_fit_batch(t, y, m, iters=iters)
-        launches = gaussfit.LAUNCHES - before
+        launches = _build.LAUNCHES["gauss_fit"] - before
         want, plain_counts = recorded(lambda: plain(t, y, m, iters))
         _, counts = recorded(lambda: gaussfit.gaussian_fit_batch(
             t, y, m, iters=iters))
@@ -520,16 +515,16 @@ def phase_ccl(dev):
     Returns the kernel rows."""
     import torch
 
-    from respmon_tpu_torch.ops import ccl
+    from respmon_tpu_torch.ops import _build, ccl
 
     gen = torch.Generator(device=dev).manual_seed(18)
     rows = []
     for s, h, w, path in CCL_SHAPES:
         for kind in ("sparse", "dense", "blobs"):
             fg = ccl_masks(dev, (s, h, w), kind, gen)
-            before = ccl.LAUNCHES
+            before = _build.LAUNCHES["ccl"]
             got = ccl.largest_component_bbox_batch(fg)
-            launches = ccl.LAUNCHES - before
+            launches = _build.LAUNCHES["ccl"] - before
             parts, plain_s = wall_s(
                 lambda: [ccl._largest_component_bbox(img) for img in fg])
             want = [torch.stack(f) for f in zip(*(b for b, _ in parts))]
@@ -1136,7 +1131,7 @@ def phase_k3_locate(frames, roi):
     launches = read_launches()
     check(launches["band_left"] > 0 and launches["band_right"] > 0,
           f"the K3 calibration launched both band kernels: {launches}")
-    check(not any(launches[k] for k in pyramid_cuda.LAUNCHES),
+    check(not any(launches[k] for k in pyramid_cuda.KERNELS.counted),
           "the K3 calibration launched no stencil kernel")
     check(bool(res.found), "K3 locate found an ROI")
     check(tuple(_bbox(res)) == tuple(roi),

@@ -10,6 +10,11 @@ checkout.  A library is loaded with ``ctypes``.
 Importing this module needs no toolchain: a CUDA build runs only when a
 CUDA tensor first reaches a kernel (``load``), the host build when the
 frame ring is first made (``load("resp_native", ".cpp")``).
+
+A CUDA library's wrapper declares its C functions once, in a ``Kernels``
+table, and launches through it: the table binds the functions at the first
+launch, passes the current stream, turns a failed launch into
+``RuntimeError`` and counts each launch in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -33,6 +41,12 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra")
 FLAGS = {".cu": NVCC_FLAGS, ".cpp": CXX_FLAGS}
 
 _LOADED: dict = {}
+
+# Launches of each counted kernel since ``reset_launches``, by the name its
+# wrapper counts it under; a wrapper's names are present from its import.
+LAUNCHES: Dict[str, int] = {}
+
+_ARGTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 
 
 def find_nvcc() -> str:
@@ -91,3 +105,49 @@ def load(name: str, source: str = ".cu") -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name, source)))
         _LOADED[(name, source)] = lib
     return lib
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class Kernels:
+    """The C functions of ``csrc/<name>.cu`` and the names their launches
+    are counted under (``counted``).  ``signatures`` maps each function to
+    its arguments before the stream, a letter each: ``p`` a pointer (a
+    ``data_ptr()`` or None), ``i`` an int, ``d`` a double.  Every function
+    takes a ``cudaStream_t`` last and returns a ``cudaError_t``."""
+
+    def __init__(self, name: str, signatures: Dict[str, str],
+                 counted: Iterable[str]):
+        self.name = name
+        self.signatures = signatures
+        self.counted = tuple(counted)
+        for k in self.counted:
+            LAUNCHES.setdefault(k, 0)
+        self._lib = None
+
+    def bind(self) -> ctypes.CDLL:
+        """The library, built, loaded and its functions typed at the first
+        call."""
+        if self._lib is None:
+            lib = load(self.name)
+            for symbol, args in self.signatures.items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = [_ARGTYPES[a] for a in args] + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    def launch(self, symbol: str, device: torch.device, *args,
+               count: str) -> None:
+        """``symbol(*args)`` on ``device``'s current stream, no synchronise;
+        a non-zero ``cudaError_t`` raises ``RuntimeError``, else the launch
+        counts under ``count``."""
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(self.bind(), symbol)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+        LAUNCHES[count] += 1

@@ -18,29 +18,22 @@ The kernel computes the same function bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from respmon_tpu_torch.ops import _build
 from respmon_tpu_torch.utils.bench import span
 
-# Calls of csrc/ccl.cu, one a batch of masks on a CUDA tensor (six kernels
-# each).
-LAUNCHES = 0
+# csrc/ccl.cu: one call a batch of masks on a CUDA tensor (six kernels
+# each), counted as ccl.
+KERNELS = _build.Kernels("ccl", {"ccl_largest_bbox": "piiipppp"},
+                         counted=("ccl",))
 
 # The kernel sums areas in halves, exact in float32 (as the plain version's
 # sums are) below 2**23: it takes masks of fewer pixels.
 MAX_PIXELS = 2 ** 23
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 class BBoxResult(NamedTuple):
@@ -209,21 +202,9 @@ def largest_component_bbox_batch(fg: torch.Tensor) -> BBoxResult:
         return box
 
 
-def _lib():
-    from respmon_tpu_torch.ops import _build
-
-    lib = _build.load("ccl")
-    if not getattr(lib, "_respmon_bound", False):
-        lib.ccl_largest_bbox.argtypes = [_P, _I, _I, _I] + [_P] * 5
-        lib.ccl_largest_bbox.restype = _I
-        lib._respmon_bound = True
-    return lib
-
-
 def _bbox_cuda(fg: torch.Tensor) -> BBoxResult:
     """``largest_component_bbox_batch``'s body on the card: one call of
     ``csrc/ccl.cu`` (six launches on the current stream)."""
-    global LAUNCHES
     s, h, w = fg.shape
     if fg.device.type != "cuda":
         raise ValueError(f"ccl: expected a CPU or CUDA tensor, got "
@@ -240,14 +221,9 @@ def _bbox_cuda(fg: torch.Tensor) -> BBoxResult:
     xywh = torch.empty((4, s), dtype=torch.int32, device=dev)
     found = torch.empty(s, dtype=torch.bool, device=dev)
     area = torch.empty(s, dtype=torch.float32, device=dev)
-    err = _lib().ccl_largest_bbox(
-        fg.data_ptr(), s, h, w, work.data_ptr(), xywh.data_ptr(),
-        found.data_ptr(), area.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ccl_largest_bbox launch failed: cudaError_t "
-                           f"{err}")
-    LAUNCHES += 1
+    KERNELS.launch("ccl_largest_bbox", dev, fg.data_ptr(), s, h, w,
+                   work.data_ptr(), xywh.data_ptr(), found.data_ptr(),
+                   area.data_ptr(), count="ccl")
     return BBoxResult(x=xywh[0], y=xywh[1], w=xywh[2], h=xywh[3],
                       found=found, area=area)
 

@@ -24,19 +24,22 @@ to wherever the last bits take it, ends where the plain loop's does.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
+from respmon_tpu_torch.ops import _build
 from respmon_tpu_torch.utils.bench import span
 
 # Safeguarded Newton steps of the trust-region lambda solve per LM step,
 # in the plain loop and in csrc/gaussfit.cu (passed to each launch).
 _TR_NEWTON_ITERS = 16
 
-# Launches of csrc/gaussfit.cu, one a fit on a CUDA tensor.
-LAUNCHES = 0
+# csrc/gaussfit.cu: one launch a fit on a CUDA tensor, counted as gauss_fit.
+_FIT_ARGS = "ppp" + "i" * 7 + "dd" + "ppp"
+KERNELS = _build.Kernels("gaussfit", {"gauss_fit_f32": _FIT_ARGS,
+                                      "gauss_fit_f64": _FIT_ARGS},
+                         counted=("gauss_fit",))
 
 # The order in which the plain loop's J^T r (cuBLAS's batched gemv) sums
 # over W = 20 on an H100 under PyTorch 2.11 and CUDA 12.8, which cuBLAS
@@ -50,16 +53,6 @@ _GEMV_ORDERS = {
     torch.float64: ((12, (4, 5, 1)), (768, (2, 1, 0)), (960, (2, 10, 0)),
                     (1536, (2, 1, 0)), (None, (1, 1, 0))),
 }
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_D = ctypes.c_double
 
 
 class GaussFit(NamedTuple):
@@ -152,18 +145,6 @@ def _tolerances(dtype, ftol, xtol):
     return (tol if ftol is None else ftol), (tol if xtol is None else xtol)
 
 
-def _lib():
-    from respmon_tpu_torch.ops import _build
-
-    lib = _build.load("gaussfit")
-    if not getattr(lib, "_respmon_bound", False):
-        for fn in (lib.gauss_fit_f32, lib.gauss_fit_f64):
-            fn.argtypes = [_P, _P, _P] + [_I] * 7 + [_D, _D, _P, _P, _P, _P]
-            fn.restype = _I
-        lib._respmon_bound = True
-    return lib
-
-
 def _check_cuda(t, y, mask) -> None:
     if y.device.type != "cuda" or t.device != y.device \
             or mask.device != y.device:
@@ -194,7 +175,6 @@ def _fit_cuda(t, y, mask, iters: int, ftol, xtol, rec) -> GaussFit:
     read of the lanes' iteration counts sets the counts ``_fit_loop``
     sets: ``lanes`` live at the start, ``steps`` (the most any lane ran,
     what the lockstep loop would run) and ``live_lane_steps``."""
-    global LAUNCHES
     _check_cuda(t, y, mask)
     ftol, xtol = _tolerances(y.dtype, ftol, xtol)
     batch, w = y.shape[:-1], y.shape[-1]
@@ -203,16 +183,12 @@ def _fit_cuda(t, y, mask, iters: int, ftol, xtol, rec) -> GaussFit:
     converged = torch.empty(lanes, dtype=torch.bool, device=y.device)
     steps = torch.empty(lanes, dtype=torch.int32, device=y.device)
     if lanes:
-        fn = _lib().gauss_fit_f32 if y.dtype == torch.float32 \
-            else _lib().gauss_fit_f64
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = fn(t.data_ptr(), y.data_ptr(), mask.data_ptr(), lanes, w,
-                 iters, _TR_NEWTON_ITERS, *_gemv_order(y.dtype, lanes, w),
-                 ftol, xtol, out.data_ptr(), converged.data_ptr(),
-                 steps.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"gauss_fit launch failed: cudaError_t {err}")
-        LAUNCHES += 1
+        KERNELS.launch(
+            "gauss_fit_f32" if y.dtype == torch.float32 else "gauss_fit_f64",
+            y.device, t.data_ptr(), y.data_ptr(), mask.data_ptr(), lanes, w,
+            iters, _TR_NEWTON_ITERS, *_gemv_order(y.dtype, lanes, w), ftol,
+            xtol, out.data_ptr(), converged.data_ptr(), steps.data_ptr(),
+            count="gauss_fit")
     if rec.recording:
         c = steps.cpu()
         rec.set(lanes=int((c > 0).sum()),

@@ -15,48 +15,27 @@ Counterpart of ``respmon_tpu/ops/pyramid_pallas.py``:
 The kernels live in ``csrc/pyramid.cu``.  ``pyr_down``, ``pyr_tail`` and
 ``lap_level`` are the wrappers: for a CPU tensor they run the plain version
 (``ops/pyramid.py``); for a CUDA tensor they launch the kernel or raise.
-``LAUNCHES`` counts kernel launches per kernel, A's per instantiation
-(``pyr_down_levels_d1``, ``pyr_down_levels_d2``).
+``ops/_build.LAUNCHES`` counts their launches per kernel, A's per
+instantiation (``pyr_down_levels_d1``, ``pyr_down_levels_d2``).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
 
-from respmon_tpu_torch.ops import pyramid
+from respmon_tpu_torch.ops import _build, pyramid
 from respmon_tpu_torch.ops.pyramid import pyramid_shapes
 
 MAX_FUSED = 2                 # pyrDowns that one launch of A fuses
 TAIL_BUDGET_BYTES = 200 * 1024  # B's shared memory, of a block's 227 KB
 
-LAUNCHES = {**{f"pyr_down_levels_d{d}": 0 for d in range(1, MAX_FUSED + 1)},
-            "pyr_tail": 0, "lap_level": 0}
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _lib():
-    from respmon_tpu_torch.ops import _build
-
-    lib = _build.load("pyramid")
-    if not getattr(lib, "_respmon_bound", False):
-        lib.pyr_down_levels_f32.argtypes = [_P, _P, _I, _I, _I, _I, _P]
-        lib.pyr_down_levels_f32.restype = _I
-        lib.pyr_tail_f32.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P]
-        lib.pyr_tail_f32.restype = _I
-        lib.lap_level_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
-        lib.lap_level_f32.restype = _I
-        lib._respmon_bound = True
-    return lib
+KERNELS = _build.Kernels(
+    "pyramid", {"pyr_down_levels_f32": "ppiiii", "pyr_tail_f32": "ppiiiii",
+                "lap_level_f32": "pppiiiii"},
+    counted=[f"pyr_down_levels_d{d}" for d in range(1, MAX_FUSED + 1)]
+    + ["pyr_tail", "lap_level"])
 
 
 class Plan(NamedTuple):
@@ -112,11 +91,6 @@ def _check(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
-
-
 def pyr_down(x: torch.Tensor, d: int = 1) -> torch.Tensor:
     """cv2.pyrDown applied ``d`` times (1 <= d <= MAX_FUSED) to a
     (T, H, W) f32 video, in one launch of the ``pyr_down_levels_f32``
@@ -133,11 +107,9 @@ def pyr_down(x: torch.Tensor, d: int = 1) -> torch.Tensor:
                       dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _raise_on(_lib().pyr_down_levels_f32(x.data_ptr(), out.data_ptr(), t_len,
-                                         h, w, d, stream),
-              "pyr_down_levels_f32")
-    LAUNCHES[f"pyr_down_levels_d{d}"] += 1
+    KERNELS.launch("pyr_down_levels_f32", x.device, x.data_ptr(),
+                   out.data_ptr(), t_len, h, w, d,
+                   count=f"pyr_down_levels_d{d}")
     return out
 
 
@@ -165,10 +137,8 @@ def pyr_tail(g: torch.Tensor, levels: int,
                  zip(flat.split(sizes), shapes))
     if g.numel() == 0:
         return outs
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    _raise_on(_lib().pyr_tail_f32(g.data_ptr(), flat.data_ptr(), t_len, h, w,
-                                  levels, first_kept, stream), "pyr_tail_f32")
-    LAUNCHES["pyr_tail"] += 1
+    KERNELS.launch("pyr_tail_f32", g.device, g.data_ptr(), flat.data_ptr(),
+                   t_len, h, w, levels, first_kept, count="pyr_tail")
     return outs
 
 
@@ -189,11 +159,8 @@ def lap_level(g: torch.Tensor, gn: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(g)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    _raise_on(_lib().lap_level_f32(g.data_ptr(), gn.data_ptr(),
-                                   out.data_ptr(), t_len, h, w, hn, wn,
-                                   stream), "lap_level_f32")
-    LAUNCHES["lap_level"] += 1
+    KERNELS.launch("lap_level_f32", g.device, g.data_ptr(), gn.data_ptr(),
+                   out.data_ptr(), t_len, h, w, hn, wn, count="lap_level")
     return out
 
 

@@ -15,8 +15,8 @@ JAX package's, so the linear maps are exact.  The products are the
 kernels of ``csrc/band_mm.cu``: ``band_left`` (``A @ B[t]``) and
 ``band_right`` (``B[t] @ A``, optionally subtracted from a minuend in the
 same pass) are the wrappers.  For CPU tensors they are ``torch.matmul``;
-for CUDA tensors they launch the kernel or raise.  ``LAUNCHES`` counts
-kernel launches per kernel.  ``laplacian_band_levels_mm_ref`` is the plain
+for CUDA tensors they launch the kernel or raise (``ops/_build.LAUNCHES``
+counts the launches per kernel).  ``laplacian_band_levels_mm_ref`` is the plain
 version: the same chain through dense ``torch.matmul`` in full float32
 (the package keeps TF32 off), on any device.
 
@@ -32,7 +32,6 @@ product; a bare tensor in place of an operator walks everything.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 from typing import Optional, Tuple, Union
@@ -40,9 +39,12 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from respmon_tpu_torch.ops import _build
 from respmon_tpu_torch.ops.pyramid import _K5, pyramid_shapes
 
-LAUNCHES = {"band_left": 0, "band_right": 0}
+KERNELS = _build.Kernels("band_mm", {"band_left_f32": "pppiiiipii",
+                                     "band_right_f32": "ppppiiiipii"},
+                         counted=("band_left", "band_right"))
 
 # Rows (left product) or columns (right product) of the shared matrix that
 # one thread block of csrc/band_mm.cu owns (kBandTile there), and the
@@ -50,14 +52,6 @@ LAUNCHES = {"band_left": 0, "band_right": 0}
 # start the kernel's 16-byte copies can take.
 BAND_TILE = 64
 RANGE_ALIGN = 8
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # Copied from respmon_tpu/ops/pyramid_pallas.py:113-127.
@@ -204,21 +198,6 @@ def _operators(h: int, w: int, levels: int, skip_top: int,
     return dh, dw_t, uh, uw_t
 
 
-def _lib():
-    from respmon_tpu_torch.ops import _build
-
-    lib = _build.load("band_mm")
-    if not getattr(lib, "_respmon_bound", False):
-        lib.band_left_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
-                                      _P]
-        lib.band_left_f32.restype = _I
-        lib.band_right_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
-                                       _I, _P]
-        lib.band_right_f32.restype = _I
-        lib._respmon_bound = True
-    return lib
-
-
 def _check(x: torch.Tensor, ndim: int, name: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected all tensors on one CUDA device "
@@ -230,11 +209,6 @@ def _check(x: torch.Tensor, ndim: int, name: str) -> None:
                          f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-
-
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
 
 
 def _unpack(a: Union[torch.Tensor, BandOperator], side: str, name: str):
@@ -272,12 +246,9 @@ def band_left(a: Union[torch.Tensor, BandOperator],
     out = torch.empty((t_len, m, n), dtype=b.dtype, device=b.device)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    _raise_on(_lib().band_left_f32(a.data_ptr(), b.data_ptr(),
-                                   out.data_ptr(), t_len, m, k, n, ranges,
-                                   n_ranges, exact, stream),
-              "band_left_f32")
-    LAUNCHES["band_left"] += 1
+    KERNELS.launch("band_left_f32", b.device, a.data_ptr(), b.data_ptr(),
+                   out.data_ptr(), t_len, m, k, n, ranges, n_ranges, exact,
+                   count="band_left")
     return out
 
 
@@ -307,12 +278,10 @@ def band_right(b: torch.Tensor, a: Union[torch.Tensor, BandOperator],
     out = torch.empty((t_len, m, n), dtype=b.dtype, device=b.device)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    _raise_on(_lib().band_right_f32(
-        b.data_ptr(), a.data_ptr(),
-        None if minuend is None else minuend.data_ptr(), out.data_ptr(),
-        t_len, m, k, n, ranges, n_ranges, exact, stream), "band_right_f32")
-    LAUNCHES["band_right"] += 1
+    KERNELS.launch("band_right_f32", b.device, b.data_ptr(), a.data_ptr(),
+                   None if minuend is None else minuend.data_ptr(),
+                   out.data_ptr(), t_len, m, k, n, ranges, n_ranges, exact,
+                   count="band_right")
     return out
 
 

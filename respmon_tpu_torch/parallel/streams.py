@@ -645,36 +645,20 @@ class MultiStreamMonitor:
         self._maybe_relock(boxes, dev)
 
     def _maybe_relock(self, boxes: np.ndarray, dev) -> None:
-        """The host's drift decision on the localize's ``boxes`` (found, x,
-        y, w, h rows) and the batched masked re-lock.  Each stream keeps
-        its calibrated window SIZE, recentred on the localized bbox and
-        clipped to the frame, like the single-stream monitor's re-lock.
+        """The host's drift decision (``streaming.relock_rule``) on the
+        localize's ``boxes`` (found, x, y, w, h rows) and the batched
+        masked re-lock.  Each stream keeps its calibrated window SIZE,
+        recentred on the localized bbox and clipped to the frame, like the
+        single-stream monitor's re-lock.
 
         A re-lock that moves every tracked point of a stream out of its
         window leaves that stream uninitialized; the next step then runs
         the corner detection (the JAX fleet keeps the hint and never
         detects that stream's corners again)."""
-        found, bx, by, bw, bh = boxes
-        found = found.astype(bool)
-        if not found.any():
-            return
-        cur = self._rois
-        cx = bx + bw / 2.0
-        cy = by + bh / 2.0
-        drift = np.hypot(cx - (cur[:, 0] + cur[:, 2] / 2.0),
-                         cy - (cur[:, 1] + cur[:, 3] / 2.0))
-        apply = found & (drift >= self.cfg.streaming_drift_px)
+        apply, new_rois = streaming.relock_rule(
+            boxes, self._rois, self.cfg.streaming_drift_px, self.frame_hw)
         if not apply.any():
             return
-        h_f, w_f = self.frame_hw
-        w = cur[:, 2]
-        h = cur[:, 3]
-        x2 = np.clip(np.round(cx - w / 2.0), 0, w_f - w).astype(np.int32)
-        y2 = np.clip(np.round(cy - h / 2.0), 0, h_f - h).astype(np.int32)
-        apply &= (x2 != cur[:, 0]) | (y2 != cur[:, 1])
-        if not apply.any():
-            return
-        new_rois = np.stack([x2, y2, w, h], axis=1).astype(np.int32)
         with span("fleet.relock", relocked=int(apply.sum())):
             # The property setter also drops the carried LK cache
             # (re-locked streams re-cropped prev from the current frame).
@@ -685,7 +669,7 @@ class MultiStreamMonitor:
             if self.spec.method == "flow" and \
                     not bool(self._states.initialized.all()):
                 self._needs_init = True
-        self._rois[apply] = new_rois[apply]
+        self._rois = new_rois
         self.relocks += int(apply.sum())
 
     def step_many(self, frames) -> StreamBatchResult:

@@ -13,13 +13,15 @@ changes nothing in place.  The ``*_batch`` functions and ``coarse=True``
 serve a fleet of streams (rings with a leading stream axis).  A fleet
 localize (``localize_batch``) bandpasses each kept level of all S streams
 in one operator product, collapses them as one stack and searches the S
-masks for their components in one call.
+masks for their components in one call.  ``relock_rule`` is the
+monitor's and the fleet's re-lock decision on a localize's boxes.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from respmon_tpu_torch import device as device_mod
@@ -214,3 +216,29 @@ def streaming_update(state: StreamingState, frame, fps: float,
     new_state = streaming_absorb(state, frame, cfg)
     return new_state, _localize_window(new_state, tuple(frame.shape),
                                        frame.dtype, fps, cfg, coarse)
+
+
+def relock_rule(boxes, rois, drift_px: float, frame_hw):
+    """(apply, new ROIs) of the re-lock decision on a localize's (5, S)
+    ``boxes`` (found, x, y, w, h) against the (S, 4) ``rois`` (x, y, w, h)
+    before it, on the host: a found stream whose box centre lies
+    ``drift_px`` or more from its ROI's centre moves its window, at its
+    size, onto that centre (rounded half to even), clipped to the (H, W)
+    frame; streams whose window would not move stay.  ``new ROIs`` holds
+    every stream's ROI after the localize, in the dtype of ``rois``."""
+    found, bx, by, bw, bh = np.asarray(boxes, np.int64)
+    cur = np.asarray(rois)
+    cx = bx + bw / 2.0
+    cy = by + bh / 2.0
+    drift = np.hypot(cx - (cur[:, 0] + cur[:, 2] / 2.0),
+                     cy - (cur[:, 1] + cur[:, 3] / 2.0))
+    h_f, w_f = frame_hw
+    w, h = cur[:, 2], cur[:, 3]
+    x2 = np.maximum(0, np.minimum(np.round(cx - w / 2.0), w_f - w))
+    y2 = np.maximum(0, np.minimum(np.round(cy - h / 2.0), h_f - h))
+    apply = found.astype(bool) & (drift >= drift_px) \
+        & ((x2 != cur[:, 0]) | (y2 != cur[:, 1]))
+    new = cur.copy()
+    new[apply, 0] = x2[apply]
+    new[apply, 1] = y2[apply]
+    return apply, new

@@ -669,34 +669,28 @@ class RespiratoryMonitor:
 
     def _relock(self, frame_dev, found, bx, by, bw, bh):
         """When the located center has drifted at least
-        ``streaming_drift_px``, re-lock the measurement window onto it via
+        ``streaming_drift_px`` (``streaming.relock_rule`` with one stream),
+        re-lock the measurement window onto it via
         ``motion.relock_state``: tracked points and the signal ring
         survive, so a moving subject is followed instead of decaying into
         the error-recalibrate stall.  The window KEEPS its calibrated size
         (recentred on the new bbox center, clipped to the frame): the crop
         bucket and the session recorder's geometry stay fixed."""
-        if not found:
+        apply, rois = streaming.relock_rule(
+            [[found], [bx], [by], [bw], [bh]],
+            [[self.x, self.y, self.w, self.h]],
+            self.config.streaming_drift_px, (self.height, self.width))
+        if not apply[0]:
             return
-        cx = bx + bw / 2.0
-        cy = by + bh / 2.0
-        drift = math.hypot(cx - (self.x + self.w / 2.0),
-                           cy - (self.y + self.h / 2.0))
-        if drift < self.config.streaming_drift_px:
-            return
-        x2 = int(round(cx - self.w / 2.0))
-        y2 = int(round(cy - self.h / 2.0))
-        x2 = max(0, min(x2, self.width - self.w))
-        y2 = max(0, min(y2, self.height - self.h))
-        if (x2, y2) == (self.x, self.y):
-            return
+        x2, y2 = int(rois[0, 0]), int(rois[0, 1])
         self._measure_state = motion.relock_state(
             self._measure_state, frame_dev, (x2, y2, self.w, self.h),
             self._measure_spec)
         self.x, self.y = x2, y2
         self.relocks += 1
         logger.info("Streaming re-lock #%d: ROI -> (%d, %d, %d, %d), "
-                    "drift %.1f px", self.relocks, x2, y2, self.w, self.h,
-                    drift)
+                    "box (%d, %d, %d, %d)", self.relocks, x2, y2, self.w,
+                    self.h, bx, by, bw, bh)
 
     def _consume_bpm(self, filtered, accept_mask, cand_idx, has_bpm, bpm):
         """Host mirrors of the frame's BPM result (host copies of its

@@ -137,9 +137,53 @@ def test_fit_on_neither_cpu_nor_cuda_raises():
 
 
 def test_reset_launches_zeroes_the_kernel_s_count(monkeypatch):
-    monkeypatch.setattr(tgauss, "LAUNCHES", 7)
-    tgauss.reset_launches()
-    assert tgauss.LAUNCHES == 0
+    # One counter for every wrapper's kernels, the fit's among them.
+    from respmon_tpu_torch.ops import _build, ccl, pyramid_cuda, pyramid_mm
+
+    counted = (tgauss.KERNELS.counted + ccl.KERNELS.counted
+               + pyramid_cuda.KERNELS.counted + pyramid_mm.KERNELS.counted)
+    assert set(counted) == set(_build.LAUNCHES)
+    for n, k in enumerate(counted, 7):
+        monkeypatch.setitem(_build.LAUNCHES, k, n)
+    _build.reset_launches()
+    assert _build.LAUNCHES == dict.fromkeys(counted, 0)
+
+
+def test_a_launch_binds_once_passes_the_stream_and_counts(monkeypatch):
+    # The launch boundary of ops/_build on a stand-in library: its
+    # functions typed from the table at the first launch, the current
+    # stream last, a non-zero cudaError_t raised and left uncounted.
+    import ctypes
+    from types import SimpleNamespace
+
+    from respmon_tpu_torch.ops import _build
+
+    calls, loads = [], []
+
+    def kern(err, ptr, x, stream):
+        calls.append((err, ptr, x, stream))
+        return err
+
+    def load(name):
+        loads.append(name)
+        return SimpleNamespace(kern=kern)
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: SimpleNamespace(cuda_stream=1234))
+    monkeypatch.setitem(_build.LAUNCHES, "stand_in", 0)
+    kernels = _build.Kernels("stand_in", {"kern": "ipd"},
+                             counted=("stand_in",))
+    kernels.launch("kern", "cuda:0", 0, None, 0.5, count="stand_in")
+    assert calls == [(0, None, 0.5, 1234)] and loads == ["stand_in"]
+    assert kern.argtypes == [ctypes.c_int, ctypes.c_void_p, ctypes.c_double,
+                             ctypes.c_void_p]
+    assert kern.restype is ctypes.c_int
+    assert _build.LAUNCHES["stand_in"] == 1
+    with pytest.raises(RuntimeError,
+                       match="^kern launch failed: cudaError_t 700$"):
+        kernels.launch("kern", "cuda:0", 700, None, 0.5, count="stand_in")
+    assert _build.LAUNCHES["stand_in"] == 1 and loads == ["stand_in"]
 
 
 def _assert_params_close(got, want):

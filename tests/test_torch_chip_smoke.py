@@ -27,13 +27,13 @@ def _u8_clip(num_frames):
 
 def _count_fits(monkeypatch):
     """Each Gaussian fit adds the one launch it makes on the card to
-    ``gaussfit.LAUNCHES`` (on CPU tensors it runs the plain loop)."""
-    from respmon_tpu_torch.ops import gaussfit
+    ``_build.LAUNCHES`` (on CPU tensors it runs the plain loop)."""
+    from respmon_tpu_torch.ops import _build, gaussfit
 
     fit = gaussfit._fit
 
     def counted(*args):
-        gaussfit.LAUNCHES += 1
+        _build.LAUNCHES["gauss_fit"] += 1
         return fit(*args)
 
     monkeypatch.setattr(gaussfit, "_fit", counted)
@@ -41,14 +41,14 @@ def _count_fits(monkeypatch):
 
 def _count_ccl(monkeypatch):
     """Each batched connected-component search adds the one library call
-    it makes on the card to ``ccl.LAUNCHES`` (on CPU tensors it runs the
-    plain version)."""
-    from respmon_tpu_torch.ops import ccl
+    it makes on the card to ``_build.LAUNCHES`` (on CPU tensors it runs
+    the plain version)."""
+    from respmon_tpu_torch.ops import _build, ccl
 
     search = ccl.largest_component_bbox_batch
 
     def counted(fg):
-        ccl.LAUNCHES += 1
+        _build.LAUNCHES["ccl"] += 1
         return search(fg)
 
     monkeypatch.setattr(ccl, "largest_component_bbox_batch", counted)
@@ -145,10 +145,10 @@ def test_phases_fail_when_a_check_fails(cpu_stand_ins):
 @pytest.fixture
 def planned_launches(monkeypatch):
     """CPU stand-ins that count: each K1 call adds the launches its plan
-    makes on the card to ``pyramid_cuda.LAUNCHES``, and each Gaussian fit
-    and connected-component search its one launch, so the phases' own
-    launch checks run; no device to synchronise."""
-    from respmon_tpu_torch.ops import pyramid_cuda
+    makes on the card to ``_build.LAUNCHES``, and each Gaussian fit and
+    connected-component search its one launch, so the phases' own launch
+    checks run; no device to synchronise."""
+    from respmon_tpu_torch.ops import _build, pyramid_cuda
 
     _count_fits(monkeypatch)
     _count_ccl(monkeypatch)
@@ -159,7 +159,7 @@ def planned_launches(monkeypatch):
         planned = chip_smoke.planned_launches(*vid.shape[1:], levels,
                                               skip_top)
         for k, n in planned.items():
-            pyramid_cuda.LAUNCHES[k] += n
+            _build.LAUNCHES[k] += n
         return k1(vid, levels, skip_top)
 
     monkeypatch.setattr(pyramid_cuda, "laplacian_band_levels", counted)

@@ -14,7 +14,7 @@ import torch
 
 from respmon_tpu_torch.config import CalibrationConfig, MonitorConfig
 from respmon_tpu_torch.io.synthetic import breathing_clip
-from respmon_tpu_torch.ops import pyramid_cuda, pyramid_mm
+from respmon_tpu_torch.ops import _build, pyramid_cuda, pyramid_mm
 from respmon_tpu_torch.ops.dtype import uint8_to_float
 from respmon_tpu_torch.pipeline import evm, scan
 
@@ -55,13 +55,14 @@ def test_uint8_to_float_all_bytes(dev):
 def test_kernels_equal_plain_bit_for_bit(dev, shape, levels, skip):
     v = _video(shape, dev)
     plan = pyramid_cuda.plan(*shape[1:], levels, skip)
-    pyramid_cuda.reset_launches()
+    _build.reset_launches()
     got = pyramid_cuda.laplacian_band_levels(v, levels, skip)
     downs = [d for _, d in plan.downs]
-    assert pyramid_cuda.LAUNCHES == {"pyr_down_levels_d1": downs.count(1),
-                                     "pyr_down_levels_d2": downs.count(2),
-                                     "pyr_tail": int(plan.tail),
-                                     "lap_level": len(plan.laps)}
+    assert _build.LAUNCHES == dict(dict.fromkeys(_build.LAUNCHES, 0),
+                                   pyr_down_levels_d1=downs.count(1),
+                                   pyr_down_levels_d2=downs.count(2),
+                                   pyr_tail=int(plan.tail),
+                                   lap_level=len(plan.laps))
     want = pyramid_cuda.laplacian_band_levels_ref(v, levels, skip)
     torch.cuda.synchronize()
     assert len(got) == len(want)
@@ -145,14 +146,15 @@ def test_band_kernels_match_matmul_and_the_stencil_kernels(dev, shape, levels,
     # Summation order differs from torch.matmul's and from the stencil's:
     # atol 1e-5, the bar of the TPU kernel's own test.
     v = _video(shape, dev)
-    pyramid_mm.reset_launches()
+    _build.reset_launches()
     got = pyramid_mm.laplacian_band_levels_mm(v, levels, skip)
     n = (levels - 1) + (levels - 1 - skip)
-    assert pyramid_mm.LAUNCHES == {"band_left": n, "band_right": n}
+    assert _build.LAUNCHES == dict(dict.fromkeys(_build.LAUNCHES, 0),
+                                   band_left=n, band_right=n)
     ref = pyramid_mm.laplacian_band_levels_mm_ref(v, levels, skip)
     k1 = pyramid_cuda.laplacian_band_levels(v, levels, skip)
     torch.cuda.synchronize()
-    assert pyramid_mm.LAUNCHES == {"band_left": n, "band_right": n}
+    assert _build.LAUNCHES["band_left"] == _build.LAUNCHES["band_right"] == n
     for g, r, k in zip(got, ref, k1):
         assert g.shape == r.shape
         assert float((g - r).abs().max()) <= 1e-5
@@ -174,14 +176,14 @@ def test_band_kernels_corner_cases_match_matmul(dev, index):
     assert len(cases) == N_BAND_CASES
     name, side, (a, b, minuend) = cases[index]
     matrix = a.matrix if isinstance(a, pyramid_mm.BandOperator) else a
-    pyramid_mm.reset_launches()
+    _build.reset_launches()
     if side == "left":
         got, want = pyramid_mm.band_left(a, b), torch.matmul(matrix, b)
     else:
         got = pyramid_mm.band_right(b, a, minuend)
         want = pyramid_mm._matmul_right(b, matrix, minuend)
     torch.cuda.synchronize()
-    assert pyramid_mm.LAUNCHES[f"band_{side}"] == 1, name
+    assert _build.LAUNCHES[f"band_{side}"] == 1, name
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= 1e-5 * scale, name
 
@@ -291,10 +293,10 @@ def test_streaming_absorb_launches_k1_at_t1_and_equals_cpu(dev):
     states = {}
     for device in (dev, torch.device("cpu")):
         st = streaming.init_streaming_from_buffer(u8[:64].to(device), CAL)
-        pyramid_cuda.reset_launches()
+        _build.reset_launches()
         st = streaming.streaming_absorb(st, u8[64].to(device), CAL)
         st, res = streaming.streaming_update(st, u8[65].to(device), 10.0, CAL)
-        states[device.type] = (st, res, dict(pyramid_cuda.LAUNCHES))
+        states[device.type] = (st, res, dict(_build.LAUNCHES))
     (card, card_res, launches), (cpu, cpu_res, _) = states["cuda"], \
         states["cpu"]
     assert launches["pyr_tail"] == 2
@@ -394,11 +396,11 @@ def test_fleet_absorb_and_warm_start_launch_k1_and_equal_plain(dev):
     clips = torch.from_numpy(np.stack([
         breathing_clip(num_frames=129, height=480, width=640, seed=i)
         for i in range(2)])).to(dev)
-    pyramid_cuda.reset_launches()
+    _build.reset_launches()
     rings = streaming.init_streaming_from_buffers_batch(clips[:, :128], cal)
     rings = streaming.streaming_absorb_batch(rings, clips[:, 128], cal)
-    assert pyramid_cuda.LAUNCHES["pyr_tail"] == 2
-    assert pyramid_cuda.LAUNCHES["pyr_down_levels_d2"] == 2
+    assert _build.LAUNCHES["pyr_tail"] == 2
+    assert _build.LAUNCHES["pyr_down_levels_d2"] == 2
     saved = pyramid_cuda.laplacian_band_levels
     pyramid_cuda.laplacian_band_levels = \
         pyramid_cuda.laplacian_band_levels_ref

@@ -28,7 +28,7 @@ import torch
 
 from respmon_tpu_torch.bench import corpus_traces
 from respmon_tpu_torch.config import MeasureConfig
-from respmon_tpu_torch.ops import filters, gaussfit
+from respmon_tpu_torch.ops import _build, filters, gaussfit
 from respmon_tpu_torch.pipeline import bpm
 from respmon_tpu_torch.utils import bench
 
@@ -338,14 +338,14 @@ def test_one_launch_a_fit_and_the_loop_s_counts(dev, plain_loop, dtype):
     _estimate(corpus_traces(120)[3], dev, fits)
     t, y, m = ((a.to(dtype) if a.is_floating_point() else a)
                for a in fits[0][0][:3])
-    before = gaussfit.LAUNCHES
+    before = _build.LAUNCHES["gauss_fit"]
     gaussfit.gaussian_fit_batch(t, y, m)
-    assert gaussfit.LAUNCHES == before + 1
+    assert _build.LAUNCHES["gauss_fit"] == before + 1
     bench.clear()
     bench.enable()
     try:
         gaussfit.gaussian_fit_batch(t, y, m)
-        assert gaussfit.LAUNCHES == before + 2
+        assert _build.LAUNCHES["gauss_fit"] == before + 2
         plain_loop()
         gaussfit.gaussian_fit_batch(t, y, m)
     finally:

@@ -14,7 +14,7 @@ from respmon_tpu.ops.pyramid_pallas import (gauss_level_tiled,
                                             laplacian_band_levels)
 from respmon_tpu_torch.ops import fft_bandpass as tfft
 from respmon_tpu_torch.ops import pyramid as tpyr
-from respmon_tpu_torch.ops import pyramid_cuda
+from respmon_tpu_torch.ops import _build, pyramid_cuda
 
 torch.set_num_threads(1)
 
@@ -100,15 +100,15 @@ def test_two_stage_composition_matches_full_chain():
 
 def test_cpu_wrappers_run_the_plain_version_without_launching():
     # The second geometry's plan takes all three kernels' routes.
-    pyramid_cuda.reset_launches()
+    _build.reset_launches()
     for shape, levels, skip in [((2, 30, 40), 4, 1), ((1, 480, 640), 9, 1)]:
         v = torch.from_numpy(_video(shape, 4))
         got = pyramid_cuda.laplacian_band_levels(v, levels, skip)
         want = pyramid_cuda.laplacian_band_levels_ref(v, levels, skip)
         _close(got, [w.numpy() for w in want], atol=0)
-    assert pyramid_cuda.LAUNCHES == {"pyr_down_levels_d1": 0,
-                                     "pyr_down_levels_d2": 0,
-                                     "pyr_tail": 0, "lap_level": 0}
+    assert {k: _build.LAUNCHES[k] for k in pyramid_cuda.KERNELS.counted} \
+        == {"pyr_down_levels_d1": 0, "pyr_down_levels_d2": 0,
+            "pyr_tail": 0, "lap_level": 0}
 
 
 def test_wrappers_reject_bad_input():

@@ -63,7 +63,7 @@ def test_host_limits_are_the_kernels():
     assert pc.TAIL_BUDGET_BYTES <= 227 * 1024   # a block's shared memory
     for d in range(1, pc.MAX_FUSED + 1):
         assert f"case {d}:" in SOURCE
-        assert f"pyr_down_levels_d{d}" in pc.LAUNCHES
+        assert f"pyr_down_levels_d{d}" in pc.KERNELS.counted
     assert f"case {pc.MAX_FUSED + 1}:" not in SOURCE
 
 

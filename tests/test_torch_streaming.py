@@ -419,6 +419,67 @@ def test_relock_state_matches_the_jax_package(ingest, new_roi):
         assert bool(got.initialized)
 
 
+# -- the re-lock rule ---------------------------------------------------------
+
+# A 120x160 frame and a 20x10 window centred on (50, 35).
+RELOCK_HW = (120, 160)
+RELOCK_ROI = [40, 30, 20, 10]
+
+
+def _fleet_call(box, drift_px):
+    """``relock_rule`` as the fleet calls it: (5, S) int64 boxes and the
+    (S, 4) int32 host ROIs, here with S = 1."""
+    return tst.relock_rule(np.array([box], np.int64).T,
+                           np.array([RELOCK_ROI], np.int32), drift_px,
+                           RELOCK_HW)
+
+
+@pytest.mark.parametrize("box,drift_px,want_apply,want_roi", [
+    # found, x, y, w, h
+    pytest.param([0, 100, 80, 20, 10], 5.0, False, RELOCK_ROI,
+                 id="not-found"),
+    pytest.param([1, 44, 32, 21, 10], 5.0, False, RELOCK_ROI,
+                 id="drift-4.92-under-5"),
+    pytest.param([1, 43, 34, 20, 10], 5.0, True, [43, 34, 20, 10],
+                 id="drift-exactly-5"),
+    pytest.param([1, 0, 33, 4, 4], 5.0, True, [0, 30, 20, 10],
+                 id="clipped-left"),
+    pytest.param([1, 156, 33, 4, 4], 5.0, True, [140, 30, 20, 10],
+                 id="clipped-right"),
+    pytest.param([1, 48, 0, 4, 2], 5.0, True, [40, 0, 20, 10],
+                 id="clipped-top"),
+    pytest.param([1, 48, 116, 4, 4], 5.0, True, [40, 110, 20, 10],
+                 id="clipped-bottom"),
+    # x = round(40.5) = 40, half to even: the window would not move.
+    pytest.param([1, 40, 30, 21, 10], 0.5, False, RELOCK_ROI,
+                 id="rounds-onto-itself"),
+    pytest.param([1, 41, 30, 21, 10], 1.5, True, [42, 30, 20, 10],
+                 id="rounds-half-to-even"),
+])
+def test_relock_rule(box, drift_px, want_apply, want_roi):
+    apply, new = _fleet_call(box, drift_px)
+    assert apply.tolist() == [want_apply]
+    assert new.tolist() == [want_roi] and new.dtype == np.int32
+
+
+def test_relock_rule_one_stream_as_the_monitor_calls_it():
+    # Python ints, found as a bool.  A window at the right edge stays
+    # when its box lies beyond the edge: clipped, it would not move.
+    apply, new = tst.relock_rule([[True], [150], [30], [20], [10]],
+                                 [[140, 30, 20, 10]], 5.0, RELOCK_HW)
+    assert apply.tolist() == [False] and new.tolist() == [[140, 30, 20, 10]]
+    apply, new = tst.relock_rule([[1], [43], [34], [20], [10]],
+                                 [RELOCK_ROI], 5.0, RELOCK_HW)
+    assert apply.tolist() == [True] and new.tolist() == [[43, 34, 20, 10]]
+    # Streams decide on their own: a fleet of the cases above.
+    boxes = np.array([[0, 100, 80, 20, 10], [1, 43, 34, 20, 10],
+                      [1, 156, 33, 4, 4]], np.int64).T
+    apply, new = tst.relock_rule(boxes, np.array([RELOCK_ROI] * 3, np.int32),
+                                 5.0, RELOCK_HW)
+    assert apply.tolist() == [False, True, True]
+    assert new.tolist() == [RELOCK_ROI, [43, 34, 20, 10], [140, 30, 20, 10]]
+
+
 # -- interop ---------------------------------------------------------------
 
 def test_streaming_state_interop_round_trip(update_runs):

@@ -15,7 +15,7 @@ from benchmark.harness import cells, timing
 from respmon_tpu_torch.config import CalibrationConfig, MonitorConfig
 from respmon_tpu_torch.io.capture import ArrayCapture
 from respmon_tpu_torch.io.synthetic import breathing_clip
-from respmon_tpu_torch.ops import ccl, gaussfit
+from respmon_tpu_torch.ops import _build, ccl, gaussfit
 from respmon_tpu_torch.parallel import streams
 from respmon_tpu_torch.runtime import RespiratoryMonitor
 from respmon_tpu_torch.utils import bench
@@ -457,14 +457,14 @@ def test_a_cpu_fit_takes_the_plain_loop():
     # The kernel is for CUDA tensors: on the CPU no launch, and one
     # bpm.lm_step span an iteration inside the bpm.fit span.
     t, y, mask = _windows()
-    before = gaussfit.LAUNCHES
+    before = dict(_build.LAUNCHES)
     bench.enable()
     gaussfit.gaussian_fit_batch(t, y, mask)
     bench.disable()
     snap = bench.snapshot()
     fit = [s for s in snap if s["name"] == "bpm.fit"]
     steps = [s for s in snap if s["name"] == "bpm.lm_step"]
-    assert gaussfit.LAUNCHES == before
+    assert _build.LAUNCHES == before
     assert len(fit) == 1 and len(steps) == fit[0]["counts"]["steps"] > 1
     assert all(s["parent"] == fit[0]["id"] for s in steps)
 
